@@ -39,6 +39,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: requires a real TPU backend (skipped on CPU/GPU)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips itself without one"
+    )
 
 
 def pytest_addoption(parser):
