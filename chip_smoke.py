@@ -6,30 +6,40 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — every kernel of the main path from ``src/repro_torch/kernels/
+2. build — every kernel of the main paths from ``src/repro_torch/kernels/
    csrc`` with nvcc for sm_90a (all sources at once), ptxas registers and
-   spills;
+   spills (a spill fails the run);
 3. bit-exactness — B1 (significance filter), B4 (wire pack) and B5 (wire
    unpack-add) against their plain PyTorch versions on the card, at
-   n in {1, 7, 127, 1000003, 213620, 1431340}, with -0.0 and all-zero
+   n in {1, 7, 13, 127, 1000003, 213620, 1431340}, with -0.0 and all-zero
    tiles in the inputs; B4 at float32, fp16 and bf16, B5 on float32 and
-   int32 targets. Tolerance: bit-identical;
-4. main path — ``python -m repro_torch.launch.train --runtime faas`` on the
-   PMF job at ML-10M width (U 10681 x 20, M 20 x 71567), 4 workers, 10
-   steps, 5 steps per invocation, once with ``--wire-scheme bitmap`` and
-   once with ``auto``. The kernel launch counts are read from the workers'
-   telemetry of these runs (each worker process starts at 0); a kernel of
-   the path launched 0 times fails the run;
-5. invariants — the bitmap run's final-params digest must be identical
-   with 2 broker shards, on a rerun, and with ``--wire-impl numpy`` (which
-   must also give identical wire bytes); a small job on the card must
-   agree with the same job on the CPU (final eval RMSE within 1e-3
-   relative: the two devices sum in different orders). These five runs go
-   side by side: they are checked for bits, not timed;
-6. times — each kernel and its plain version at the main path's shapes
+   int32 targets. B2 (fused Adam + filter) and B3 (fused Adam) at the same
+   n and at 0-d, steps 1 and 100; B2 at v_t in {0, 0.7} and scale in
+   {1, 1/3}, B3 at weight decay in {0, 0.1} with p and g in float32 and
+   bfloat16. Tolerance: bit-identical;
+4. main paths — ``python -m repro_torch.launch.train --runtime faas``,
+   4 workers, 10 steps, 5 steps per invocation, each once with
+   ``--wire-scheme bitmap`` and once with ``auto``: the PMF job at ML-10M
+   width (U 10681 x 20, M 20 x 71567) with Nesterov (B1, B4, B5), and the
+   LR job on dense Criteo (13 features, 200,000 samples, batch 256) with
+   Adam (B2, B4, B5); then PMF at ML-10M width with Adam, bitmap only, so
+   that B2 runs on the 1,431,340-element M leaf. The kernel launch counts
+   are read from the workers' telemetry of each run (each worker process
+   starts at 0); a kernel of the path launched 0 times on a worker fails
+   the run, and so does B1 launched on an Adam leg;
+5. invariants — for PMF-Nesterov and for LR, the bitmap run's
+   final-params digest must be identical with 2 broker shards, on a
+   rerun, and with ``--wire-impl numpy`` (which must also give identical
+   wire bytes); the PMF-Adam digest with 2 broker shards; a small job of
+   each workload on the card must agree with the same job on the CPU
+   (final eval RMSE or BCE within 1e-3 relative: the two devices sum in
+   different orders). These runs go side by side in two batches: they are
+   checked for bits, not timed;
+6. times — each kernel and its plain version at the main paths' shapes
    and measured density, with CUDA events, L2 cold (a 64 MiB buffer is
    rewritten before every launch) and warm, beside the bound: the bytes
-   the function must move over 3.35 TB/s;
+   the function must move over 3.35 TB/s; for B3 also one
+   ``torch._fused_adamw_`` call on the same float32 tensors;
 7. step profile — one worker step's device work at ML-10M width under
    torch.profiler: device time per step beside the host time and the main
    path's steady step time (the card's busy share);
@@ -52,11 +62,19 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-SIZES = (1, 7, 127, 1000003, 213620, 1431340)
+SIZES = (1, 7, 13, 127, 1000003, 213620, 1431340)
 ML10M = {"n_users": 10681, "n_movies": 71567, "n_ratings": 400000,
          "rank": 20, "batch_size": 256}
-SMALL = {"n_users": 120, "n_movies": 150, "n_ratings": 6000, "rank": 4,
-         "batch_size": 64}
+CRITEO = {"n_samples": 200000, "batch_size": 256}
+# a job: workload, its config, optimizer and learning rate
+PMF = {"workload": "pmf", "wcfg": ML10M, "optimizer": "nesterov", "lr": 0.08}
+LR = {"workload": "lr", "wcfg": CRITEO, "optimizer": "adam", "lr": 0.01}
+PMF_ADAM = dict(PMF, optimizer="adam", lr=0.01)
+SMALL = {
+    "pmf": dict(PMF, wcfg={"n_users": 120, "n_movies": 150,
+                           "n_ratings": 6000, "rank": 4, "batch_size": 64}),
+    "lr": dict(LR, wcfg={"n_samples": 4000, "batch_size": 128}),
+}
 KERNELS = {  # name -> (source, the TPU kernel's pallas_call it replaces)
     "significance_filter": ("src/repro_torch/kernels/csrc/significance.cu",
                             "src/repro/kernels/significance.py:92"),
@@ -64,7 +82,13 @@ KERNELS = {  # name -> (source, the TPU kernel's pallas_call it replaces)
                   "src/repro/kernels/wire_pack.py:133"),
     "wire_unpack_add": ("src/repro_torch/kernels/csrc/wire_pack.cu",
                         "src/repro/kernels/wire_pack.py:261"),
+    "adam_sig_update": ("src/repro_torch/kernels/csrc/fused_adam.cu",
+                        "src/repro/kernels/fused_adam.py:166"),
+    "adam_update": ("src/repro_torch/kernels/csrc/fused_adam.cu",
+                    "src/repro/kernels/fused_adam.py:119"),
 }
+ON_NO_PATH = ("adam_update",)  # ported beside B2; no path of either package
+
 
 
 class SmokeFailure(Exception):
@@ -87,7 +111,7 @@ def require(cond: bool, msg: str) -> None:
 def _bits(t):
     import torch
 
-    t = t.detach().cpu().contiguous()
+    t = t.detach().cpu().contiguous().reshape(-1)
     if t.dtype.is_floating_point:
         return t.view(torch.uint8)
     return t
@@ -180,26 +204,84 @@ def check_kernels(dev) -> dict:
         g = wire_pack.wire_unpack_add(ti, want[0], want[2][:nnz])
         w = ref.wire_unpack_add_ref(ti, want[0], want[2][:nnz])
         require(_same(g, w), f"wire_unpack_add int32 differs at n={n}")
+    check_adam(dev, err)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)  # a fault during a kernel surfaces here
     for k, v in err.items():
         log("kernel-check", kernel=k, max_abs_err=v,
-            sizes=",".join(map(str, SIZES)))
+            sizes=",".join(map(str, SIZES))
+            + (",0-d" if k.startswith("adam") else ""))
     return err
 
 
-# -- phases 4 and 5: the main path ---------------------------------------------
+def _adam_inputs(shape, seed: int):
+    """p, g, mu, nu (>= 0), r as float32 with -0.0 entries and a leading
+    all-zero tile in p, g, mu, nu and r."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for scale in (1.0, 0.1, 0.01, 1e-4, 0.01):
+        a = np.asarray(rng.standard_normal(shape) * scale, np.float32)
+        flat = a.reshape(-1)
+        flat[: min(flat.size, 256)] = 0.0
+        flat[1::5] = -0.0
+        out.append(a)
+    np.abs(out[3], out=out[3])
+    return [torch.from_numpy(a) for a in out]
 
 
-def _train_cmd(run_dir: str, wcfg: dict, *, workers: int, steps: int,
+def check_adam(dev, err: dict) -> None:
+    """B2 and B3 against their plain versions on the same host scalars."""
+    import torch
+
+    from repro_torch.kernels import fused_adam, ref
+
+    for i, shape in enumerate([()] + [(n,) for n in SIZES]):
+        ins = [t.to(dev) for t in _adam_inputs(shape, seed=50 + i)]
+        for step in (1, 100):
+            for v_t in (0.0, 0.7):
+                for scale in (1.0, 1.0 / 3.0):
+                    got = fused_adam.adam_sig_update(*ins, 1e-3, step, v_t,
+                                                     scale=scale)
+                    s = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, step, v_t,
+                                         scale)
+                    for j, (g, w) in enumerate(zip(
+                            got, ref.adam_sig_ref(*ins, s))):
+                        require(_same(g, w),
+                                f"adam_sig_update output {j} differs at "
+                                f"shape={shape} step={step} v_t={v_t} "
+                                f"scale={scale}")
+                        err["adam_sig_update"] = max(
+                            err["adam_sig_update"], _abs_err(g, w))
+            for dt in (torch.float32, torch.bfloat16):
+                for wd in (0.0, 0.1):
+                    bi = [ins[0].to(dt), ins[1].to(dt), ins[2], ins[3]]
+                    got = fused_adam.adam_update(*bi, 1e-3, step,
+                                                 weight_decay=wd)
+                    s = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, step, wd)
+                    for j, (g, w) in enumerate(zip(got, ref.adam_ref(*bi,
+                                                                      s))):
+                        require(_same(g, w),
+                                f"adam_update output {j} differs at "
+                                f"shape={shape} step={step} {dt} wd={wd}")
+                        err["adam_update"] = max(err["adam_update"],
+                                                 _abs_err(g, w))
+
+
+# -- phases 4 and 5: the main paths -------------------------------------------
+
+
+def _train_cmd(run_dir: str, job: dict, *, workers: int, steps: int,
                inv_steps: int, scheme: str, impl: str = "cuda",
                n_brokers: int = 1, device: str = "cuda") -> list:
     return [sys.executable, "-m", "repro_torch.launch.train",
-            "--runtime", "faas", "--workload", "pmf",
-            "--workload-cfg", json.dumps(wcfg),
+            "--runtime", "faas", "--workload", job["workload"],
+            "--workload-cfg", json.dumps(job["wcfg"]),
             "--workers", str(workers), "--steps", str(steps),
             "--invocation-steps", str(inv_steps),
-            "--optimizer", "nesterov", "--lr", "0.08",
+            "--optimizer", job["optimizer"], "--lr", str(job["lr"]),
             "--wire-scheme", scheme, "--wire-impl", impl,
             "--n-brokers", str(n_brokers), "--device", device,
             "--checkpoint-every", "100",
@@ -207,18 +289,18 @@ def _train_cmd(run_dir: str, wcfg: dict, *, workers: int, steps: int,
 
 
 def run_trains(jobs: list, timeout_s: float = 300.0) -> list:
-    """Run training jobs ``(run_dir, wcfg, kwargs)`` side by side through
+    """Run training jobs ``(run_dir, job, kwargs)`` side by side through
     the CLI; returns their result dicts. Every process group started here
     is killed if the time limit passes."""
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     procs = []
     try:
-        for run_dir, wcfg, kw in jobs:
+        for run_dir, job, kw in jobs:
             os.makedirs(run_dir, exist_ok=True)
             with open(os.path.join(run_dir, "stderr.log"), "wb") as err:
                 procs.append(subprocess.Popen(
-                    _train_cmd(run_dir, wcfg, **kw), env=env,
+                    _train_cmd(run_dir, job, **kw), env=env,
                     stdout=subprocess.DEVNULL, stderr=err,
                     start_new_session=True))
         deadline = time.monotonic() + timeout_s
@@ -254,93 +336,150 @@ def steady(res: dict, inv_steps: int) -> dict:
             "phase_s": phases, "steps": [r["step"] for r in rows]}
 
 
-def digest(run_dir: str, wcfg: dict, device: str = "cuda") -> str:
-    from repro_torch.runtime.supervisor import FaaSJobConfig, \
-        final_params_digest
+def _job_cfg(run_dir: str, job: dict, device: str = "cuda"):
+    from repro_torch.runtime.supervisor import FaaSJobConfig
 
-    return final_params_digest(FaaSJobConfig(
-        run_dir=run_dir, workload="pmf", workload_cfg=wcfg, device=device,
-        optimizer="nesterov", lr=0.08))
+    return FaaSJobConfig(run_dir=run_dir, workload=job["workload"],
+                         workload_cfg=job["wcfg"], device=device,
+                         optimizer=job["optimizer"], lr=job["lr"])
 
 
-def final_params(run_dir: str, wcfg: dict, device: str):
-    from repro_torch.runtime.supervisor import FaaSJobConfig, final_params
+def digest(run_dir: str, job: dict) -> str:
+    from repro_torch.runtime.supervisor import final_params_digest
 
-    return final_params(FaaSJobConfig(
-        run_dir=run_dir, workload="pmf", workload_cfg=wcfg, device=device,
-        optimizer="nesterov", lr=0.08))[0]
+    return final_params_digest(_job_cfg(run_dir, job))
+
+
+def final_params(run_dir: str, job: dict, device: str):
+    from repro_torch.runtime.supervisor import final_params
+
+    return final_params(_job_cfg(run_dir, job, device))[0]
+
+
+# (label, job, scheme, the kernels every worker must launch); B1 must not
+# run on an Adam leg: there B2 takes the optimizer and the filter
+LEGS = (
+    ("pmf_bitmap", PMF, "bitmap",
+     ("significance_filter", "wire_pack", "wire_unpack_add")),
+    ("pmf_auto", PMF, "auto", ("significance_filter", "wire_pack")),
+    ("lr_bitmap", LR, "bitmap",
+     ("adam_sig_update", "wire_pack", "wire_unpack_add")),
+    ("lr_auto", LR, "auto", ("adam_sig_update", "wire_pack")),
+    ("pmf_adam_bitmap", PMF_ADAM, "bitmap",
+     ("adam_sig_update", "wire_pack", "wire_unpack_add")),
+)
 
 
 def main_path(tmp: str) -> dict:
     from repro_torch.kernels import build
 
     runs = {}
-    for scheme in ("bitmap", "auto"):
-        d = os.path.join(tmp, f"main_{scheme}")
+    for label, job, scheme, must in LEGS:
+        d = os.path.join(tmp, f"main_{label}")
         build.reset_launches()  # this process; each worker starts at 0
-        res, = run_trains([(d, ML10M, dict(workers=4, steps=10,
-                                           inv_steps=5, scheme=scheme))])
+        res, = run_trains([(d, job, dict(workers=4, steps=10, inv_steps=5,
+                                         scheme=scheme))])
         launches = res["kernel_launches_by_worker"]
         require(res["steps"] == 10 and res["final_pool"] == 4,
-                f"{scheme}: steps={res['steps']} pool={res['final_pool']}")
-        require(res["dup_mismatches"] == 0, f"{scheme}: dup mismatches")
+                f"{label}: steps={res['steps']} pool={res['final_pool']}")
+        require(res["dup_mismatches"] == 0, f"{label}: dup mismatches")
         require(sorted(launches) == ["0", "1", "2", "3"],
-                f"{scheme}: launch telemetry from workers {sorted(launches)}")
-        for name in (("significance_filter", "wire_pack", "wire_unpack_add")
-                     if scheme == "bitmap"
-                     else ("significance_filter", "wire_pack")):
-            for w, counts in launches.items():
+                f"{label}: launch telemetry from workers {sorted(launches)}")
+        for w, counts in launches.items():
+            for name in must:
                 require(counts.get(name, 0) > 0,
-                        f"{scheme}: {name} launched 0 times on worker {w}")
+                        f"{label}: {name} launched 0 times on worker {w}")
+            if job["optimizer"] == "adam":
+                require(counts.get("significance_filter", 0) == 0,
+                        f"{label}: B1 launched on worker {w} of an Adam leg")
         sent = [r["sent_fraction"] for r in res["history"]]
-        log("main-path", scheme=scheme, impl="cuda", steps=res["steps"],
-            final_loss=res["final_loss"], final_eval=res["final_eval"],
+        require(sum(sent) > 0, f"{label}: nothing was sent")
+        require(res["final_eval"] is not None
+                and res["final_eval"] == res["final_eval"],
+                f"{label}: final eval {res['final_eval']}")
+        log("main-path", leg=label, workload=job["workload"],
+            optimizer=job["optimizer"], scheme=scheme, impl="cuda",
+            steps=res["steps"], final_loss=res["final_loss"],
+            final_eval=res["final_eval"],
             wire_bytes_total=res["wire_bytes_total"],
             step_s_mean=res["measured_step_s"], wall_s=res["wall_s"],
             sent_fraction_mean=sum(sent) / len(sent),
             phase_s_mean=json.dumps(res["phase_s_mean"]),
             steady=json.dumps(steady(res, 5)),
             launches=json.dumps(launches))
-        runs[scheme] = (d, res)
+        runs[label] = (d, res)
     return runs
 
 
 def invariants(tmp: str, runs: dict) -> None:
     import torch
 
-    d0, res0 = runs["bitmap"]
-    dig0 = digest(d0, ML10M)
-    params = final_params(d0, ML10M, "cuda")
-    require(tuple(params.U.shape) == (10681, 20)
-            and tuple(params.M.shape) == (20, 71567), "final param shapes")
-    require(bool(torch.isfinite(params.U).all())
-            and bool(torch.isfinite(params.M).all()), "non-finite params")
-    # the three invariant runs and the card/CPU reference pair run side by
-    # side: they are checked for bits, not timed
+    checks = {"pmf": (PMF, "pmf_bitmap"), "lr": (LR, "lr_bitmap")}
+    shapes = {"pmf": [(10681, 20), (20, 71567)], "lr": [(13,), ()]}
+    for name, (job, leg) in checks.items():
+        params = final_params(runs[leg][0], job, "cuda")
+        leaves = list(params)
+        require([tuple(x.shape) for x in leaves] == shapes[name],
+                f"{name}: final param shapes")
+        require(all(bool(torch.isfinite(x).all()) for x in leaves),
+                f"{name}: non-finite params")
+    # the invariant runs and the card/CPU reference pairs run side by side
+    # in two batches: they are checked for bits, not timed
     labels = (("n_brokers=2", {"n_brokers": 2}), ("rerun", {}),
               ("wire_impl=numpy", {"impl": "numpy"}))
-    jobs = [(os.path.join(tmp, "inv_" + label.replace("=", "_")), ML10M,
-             dict(workers=4, steps=10, inv_steps=5, scheme="bitmap", **kw))
-            for label, kw in labels]
-    jobs += [(os.path.join(tmp, f"ref_{device}"), SMALL,
-              dict(workers=2, steps=6, inv_steps=3, scheme="bitmap",
-                   device=device)) for device in ("cuda", "cpu")]
-    results = run_trains(jobs, timeout_s=400.0)
-    for (label, _), (d, _, _), res in zip(labels, jobs, results):
-        dig = digest(d, ML10M)
-        same_bytes = [r["wire_bytes"] for r in res["history"]] == [
-            r["wire_bytes"] for r in res0["history"]]
-        log("invariant", against="bitmap n_brokers=1", run=label,
-            digest_equal=dig == dig0, wire_bytes_equal=same_bytes,
-            dup_mismatches=res["dup_mismatches"])
-        require(dig == dig0, f"final-params digest differs: {label}")
-        require(same_bytes, f"per-step wire bytes differ: {label}")
-        require(res["dup_mismatches"] == 0, f"dup mismatches: {label}")
-    evals = {"cuda": results[3]["final_eval"], "cpu": results[4]["final_eval"]}
-    rel = abs(evals["cuda"] - evals["cpu"]) / abs(evals["cpu"])
-    log("reference", workload="pmf-small", cuda_eval=evals["cuda"],
-        cpu_eval=evals["cpu"], rel_diff=rel, tolerance=1e-3)
-    require(rel <= 1e-3, f"card and CPU disagree: rel {rel}")
+    for name, (job, leg) in checks.items():
+        d0, res0 = runs[leg]
+        dig0 = digest(d0, job)
+        jobs = [(os.path.join(tmp, f"inv_{name}_"
+                              + label.replace("=", "_")), job,
+                 dict(workers=4, steps=10, inv_steps=5, scheme="bitmap",
+                      **kw)) for label, kw in labels]
+        jobs += [(os.path.join(tmp, f"ref_{name}_{device}"), SMALL[name],
+                  dict(workers=2, steps=6, inv_steps=3, scheme="bitmap",
+                       device=device)) for device in ("cuda", "cpu")]
+        if name == "pmf":
+            jobs.append((os.path.join(tmp, "inv_pmf_adam_n_brokers_2"),
+                         PMF_ADAM, dict(workers=4, steps=10, inv_steps=5,
+                                        scheme="bitmap", n_brokers=2)))
+        results = run_trains(jobs, timeout_s=400.0)
+        for (label, _), (d, _, _), res in zip(labels, jobs, results):
+            dig = digest(d, job)
+            same_bytes = [r["wire_bytes"] for r in res["history"]] == [
+                r["wire_bytes"] for r in res0["history"]]
+            log("invariant", workload=name, against=f"{leg} n_brokers=1",
+                run=label, digest_equal=dig == dig0,
+                wire_bytes_equal=same_bytes,
+                dup_mismatches=res["dup_mismatches"])
+            require(dig == dig0, f"{name}: final-params digest differs: "
+                    f"{label}")
+            require(same_bytes, f"{name}: per-step wire bytes differ: {label}")
+            require(res["dup_mismatches"] == 0,
+                    f"{name}: dup mismatches: {label}")
+        if name == "pmf":
+            d_adam, res_adam = runs["pmf_adam_bitmap"]
+            dig_a, dig_a2 = digest(d_adam, PMF_ADAM), digest(jobs[-1][0],
+                                                             PMF_ADAM)
+            log("invariant", workload="pmf-adam",
+                against="pmf_adam_bitmap n_brokers=1", run="n_brokers=2",
+                digest_equal=dig_a == dig_a2,
+                wire_bytes_total_equal=results[-1]["wire_bytes_total"]
+                == res_adam["wire_bytes_total"],
+                dup_mismatches=results[-1]["dup_mismatches"])
+            require(dig_a == dig_a2, "pmf-adam: final-params digest differs: "
+                    "n_brokers=2")
+            require(results[-1]["dup_mismatches"] == 0,
+                    "pmf-adam: dup mismatches: n_brokers=2")
+        evals = {"cuda": results[3]["final_eval"],
+                 "cpu": results[4]["final_eval"]}
+        rel = abs(evals["cuda"] - evals["cpu"]) / abs(evals["cpu"])
+        log("reference", workload=f"{name}-small", cuda_eval=evals["cuda"],
+            cpu_eval=evals["cpu"], rel_diff=rel, tolerance=1e-3,
+            metric="rmse" if name == "pmf" else "bce")
+        require(rel <= 1e-3, f"{name}: card and CPU disagree: rel {rel}")
+        if name == "lr":
+            require(all(results[3]["kernel_launches_by_worker"][w].get(
+                "adam_sig_update", 0) > 0 for w in ("0", "1")),
+                "lr-small: B2 not launched on the card")
 
 
 # -- phase 6: times ------------------------------------------------------------
@@ -363,6 +502,25 @@ def _time(fn, dev, reps: int, cold: bool, flush) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call from torch.profiler (L2 warm): the
+    kernels' own time, without the wrapper's host work that CUDA events
+    around an idle card's single call also count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
 
 
 def profile_step(dev, steady_step_s: float, reps: int = 5) -> None:
@@ -481,11 +639,74 @@ def time_kernels(dev, density: float) -> dict:
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / FP32_FLOPS else "operations")
         log("kernel-time", kernel=name, n=n, nnz=nnz, ms=t_cold,
-            ms_l2warm=t_warm, plain_ms=p_cold, bound_ms=bound,
+            ms_l2warm=t_warm, device_ms_l2warm=_device_ms(kern),
+            plain_ms=p_cold, bound_ms=bound,
             bound_by=bound_by, bytes=nbytes, library_ms=None,
             library_note="no single PyTorch call computes this function")
         out[name] = {"ms": t_cold, "plain_ms": p_cold, "bound_ms": bound,
-                     "bound_by": bound_by}
+                     "bound_by": bound_by, "library_ms": None}
+    out.update(time_adam(dev, flush))
+    return out
+
+
+def time_adam(dev, flush) -> dict:
+    """B2 and B3 at the PMF M leaf (the largest B2 leaf on a main path) and
+    at the LR ``w`` leaf (13), float32; the row keeps the M-leaf numbers.
+    B3's yardstick is one ``torch._fused_adamw_`` call on the same float32
+    tensors (the same AdamW step in another rounding order; in place)."""
+    import torch
+
+    from repro_torch.kernels import fused_adam, ref
+
+    out = {}
+    for n in (13, 1431340):
+        p, g, mu, nu, r = (t.to(dev) for t in _adam_inputs((n,), seed=70))
+        s_sig = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, 3, 0.7, 0.25)
+        s_adam = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, 3, 0.1)
+        lib = [t.clone() for t in (p, g, mu, nu)]
+        step_t = torch.tensor(3.0, device=dev)
+
+        def fused_adamw():
+            torch._fused_adamw_(
+                [lib[0]], [lib[1]], [lib[2]], [lib[3]], [], [step_t],
+                amsgrad=False, lr=1e-3, beta1=0.9, beta2=0.999,
+                weight_decay=0.1, eps=1e-8, maximize=False)
+
+        cases = {
+            "adam_sig_update": (
+                lambda: fused_adam.adam_sig_update(
+                    p, g, mu, nu, r, 1e-3, 3, 0.7, scale=0.25),
+                lambda: ref.adam_sig_ref(p, g, mu, nu, r, s_sig),
+                None, 40 * n),  # 5 float32 reads, 5 writes
+            "adam_update": (
+                lambda: fused_adam.adam_update(p, g, mu, nu, 1e-3, 3,
+                                               weight_decay=0.1),
+                lambda: ref.adam_ref(p, g, mu, nu, s_adam),
+                fused_adamw, 28 * n),  # 4 float32 reads, 3 writes
+        }
+        for name, (kern, plain, library, nbytes) in cases.items():
+            flops = (20 if name == "adam_sig_update" else 16) * n
+            t_cold = _time(kern, dev, 50, True, flush)
+            t_warm = _time(kern, dev, 50, False, flush)
+            p_cold = _time(plain, dev, 20, True, flush)
+            lib_ms = (_time(library, dev, 50, True, flush)
+                      if library is not None else None)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+            bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / FP32_FLOPS else "operations")
+            log("kernel-time", kernel=name, n=n, ms=t_cold,
+                ms_l2warm=t_warm, device_ms_l2warm=_device_ms(kern),
+                library_device_ms_l2warm=(_device_ms(library)
+                                          if library is not None else None),
+                plain_ms=p_cold, bound_ms=bound,
+                bound_by=bound_by, bytes=nbytes, library_ms=lib_ms,
+                library_note=("torch._fused_adamw_, float32, in place"
+                              if library is not None else
+                              "no single PyTorch call computes Adam plus "
+                              "the significance split"))
+            out[name] = {"ms": t_cold, "plain_ms": p_cold,
+                         "bound_ms": bound, "bound_by": bound_by,
+                         "library_ms": lib_ms}
     return out
 
 
@@ -530,23 +751,31 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         runs = main_path(tmp)
         invariants(tmp, runs)
-    sent = [r["sent_fraction"] for r in runs["bitmap"][1]["history"]]
+    sent = [r["sent_fraction"] for r in runs["pmf_bitmap"][1]["history"]]
     times = time_kernels(dev, density=sum(sent) / len(sent))
-    profile_step(dev, steady(runs["bitmap"][1], 5)["step_s"])
+    profile_step(dev, steady(runs["pmf_bitmap"][1], 5)["step_s"])
 
+    # launches: every main-path leg, each counted from 0 in fresh workers
     launches = {k: 0 for k in KERNELS}
-    for counts in runs["bitmap"][1]["kernel_launches_by_worker"].values():
-        for k, v in counts.items():
-            launches[k] += v
+    for _, res in runs.values():
+        for counts in res["kernel_launches_by_worker"].values():
+            for k, v in counts.items():
+                launches[k] += v
+    for name in KERNELS:
+        require((launches[name] == 0) == (name in ON_NO_PATH),
+                f"{name}: {launches[name]} launches on the main paths")
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err[name], "ms": times[name]["ms"],
-                     "plain_ms": times[name]["plain_ms"],
-                     "bound_ms": times[name]["bound_ms"],
-                     "bound_by": times[name]["bound_by"],
-                     "library_ms": None})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": err[name], "ms": times[name]["ms"],
+               "plain_ms": times[name]["plain_ms"],
+               "bound_ms": times[name]["bound_ms"],
+               "bound_by": times[name]["bound_by"],
+               "library_ms": times[name]["library_ms"]}
+        if name in ON_NO_PATH:
+            row["path"] = "none: ported beside B2, on no path of either package"
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

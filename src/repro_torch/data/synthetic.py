@@ -1,6 +1,8 @@
-"""Synthetic MovieLens stand-in (copy of ``repro.data.synthetic``'s PMF part).
+"""Synthetic, statistically-matched stand-ins for the paper's datasets
+(copy of ``repro.data.synthetic``'s generators).
 
-Pure numpy, so the same seed gives the same ratings in both packages.
+Pure numpy, so the same seed gives the same arrays, bit for bit, in both
+packages.
 """
 
 from __future__ import annotations
@@ -8,6 +10,23 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class CriteoLikeConfig:
+    """Criteo display-ads lookalike (paper: 47M samples, 13 num + 26 cat).
+
+    A planted-model classification task: a ground-truth weight vector draws
+    labels through a logistic link, so BCE genuinely decreases under
+    training and convergence thresholds are meaningful.
+    """
+
+    n_samples: int = 200_000
+    n_numerical: int = 13
+    n_categorical: int = 26
+    hash_dim: int = 100_000  # paper's 1e5 hashing trick
+    label_noise: float = 0.08
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,6 +39,59 @@ class MovieLensLikeConfig:
     rank: int = 20
     rating_noise: float = 0.25
     seed: int = 0
+
+
+def make_criteo_dense(cfg: CriteoLikeConfig) -> tuple[np.ndarray, np.ndarray]:
+    """Returns (x, y): x (N, 13) min-max-normalised, y (N,) in {0,1}."""
+    rng = np.random.default_rng(cfg.seed)
+    x = rng.lognormal(0.0, 1.0, size=(cfg.n_samples, cfg.n_numerical)).astype(
+        np.float32
+    )
+    # min-max scaling — the paper's PyWren-IBM preprocessing step
+    x = (x - x.min(0)) / np.maximum(x.max(0) - x.min(0), 1e-9)
+    w_true = rng.normal(0.0, 2.0, size=cfg.n_numerical).astype(np.float32)
+    logits = x @ w_true - (x @ w_true).mean()
+    p = 1.0 / (1.0 + np.exp(-logits))
+    y = (rng.uniform(size=cfg.n_samples) < p).astype(np.float32)
+    flip = rng.uniform(size=cfg.n_samples) < cfg.label_noise
+    y = np.where(flip, 1.0 - y, y).astype(np.float32)
+    return x, y
+
+
+def make_criteo_sparse(
+    cfg: CriteoLikeConfig,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Returns (idx, val, y): fixed-width hashed-sparse rows.
+
+    Each sample has 13 numerical coordinates (indices 0..12) plus 26
+    categorical hashes (Zipf-distributed over the remaining hash space),
+    mirroring the paper's 'hashing trick' construction.
+    """
+    rng = np.random.default_rng(cfg.seed + 1)
+    n, nnz = cfg.n_samples, cfg.n_numerical + cfg.n_categorical
+    num_idx = np.tile(np.arange(cfg.n_numerical, dtype=np.int32), (n, 1))
+    num_val = rng.lognormal(0.0, 1.0, size=(n, cfg.n_numerical)).astype(np.float32)
+    num_val = (num_val - num_val.min(0)) / np.maximum(
+        num_val.max(0) - num_val.min(0), 1e-9
+    )
+    # Zipf-ish categorical hashes (heads are hot, like real ad categoricals)
+    zipf = rng.zipf(1.3, size=(n, cfg.n_categorical)).astype(np.int64)
+    cat_idx = (
+        cfg.n_numerical + (zipf * 2654435761 % (cfg.hash_dim - cfg.n_numerical))
+    ).astype(np.int32)
+    cat_val = np.ones((n, cfg.n_categorical), np.float32)
+    idx = np.concatenate([num_idx, cat_idx], axis=1)
+    val = np.concatenate([num_val, cat_val], axis=1)
+    # planted model over the hashed space
+    w_true = rng.normal(0.0, 1.0, size=cfg.hash_dim).astype(np.float32)
+    logits = (w_true[idx] * val).sum(1)
+    logits -= logits.mean()
+    p = 1.0 / (1.0 + np.exp(-logits))
+    y = (rng.uniform(size=n) < p).astype(np.float32)
+    flip = rng.uniform(size=n) < cfg.label_noise
+    y = np.where(flip, 1.0 - y, y).astype(np.float32)
+    assert idx.shape == (n, nnz)
+    return idx, val, y
 
 
 def make_movielens(

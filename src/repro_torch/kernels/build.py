@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("significance", "wire_pack")
+SOURCES = ("significance", "wire_pack", "fused_adam")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -42,11 +42,15 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _F = ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)  # a host scalar block
 # C signatures: every pointer and the stream as c_void_p, never a bare int
 _ARGTYPES = {
     "significance_filter_launch": [_P, _P, _P, _P, _P, _I64, _F, _F, _P],
     "wire_pack_launch": [_P, _I, _I, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wire_unpack_add_launch": [_P, _I, _P, _I64, _P, _I, _P, _P, _P, _P, _I, _P],
+    "adam_sig_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                               _FP, _F, _P],
+    "adam_update_launch": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _FP, _P],
 }
 
 

@@ -1,17 +1,30 @@
 """Tree-level entry points of the port's kernels.
 
-``significance_tree`` is the ISP filter the worker's step runs: B1 on every
-leaf (the kernel for CUDA leaves, its plain version for CPU leaves).
+``significance_tree`` is the ISP filter of the worker's Nesterov and SGD
+steps: B1 on every leaf. ``adam_isp_tree`` is the worker's whole Adam + ISP
+step: B2 on every leaf. ``fused_adam`` and ``fused_adam_sig`` apply B3 and
+B2 leaf by leaf over trees of one structure (a single tensor is a tree of
+one leaf). Each runs the kernel for CUDA leaves and its plain version for
+CPU leaves.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
+import torch
+
 from repro_torch import tree as tree_lib
+from repro_torch.kernels.fused_adam import adam_sig_update, adam_update
 from repro_torch.kernels.significance import significance_filter
 
 PyTree = Any
+
+
+def _unzip(like: PyTree, outs: list, k: int) -> tuple:
+    return tuple(tree_lib.unflatten(like, [o[i] for o in outs])
+                 for i in range(k))
 
 
 def significance_tree(updates: PyTree, params: PyTree, residual: PyTree,
@@ -23,5 +36,50 @@ def significance_tree(updates: PyTree, params: PyTree, residual: PyTree,
         for u, x, r in zip(tree_lib.leaves(updates), tree_lib.leaves(params),
                            tree_lib.leaves(residual))
     ]
-    return (tree_lib.unflatten(params, [o[0] for o in out]),
-            tree_lib.unflatten(params, [o[1] for o in out]))
+    return _unzip(params, out, 2)
+
+
+def fused_adam(p, g, mu, nu, lr, step, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8, weight_decay: float = 0.0):
+    """``(new_p, new_mu, new_nu)`` trees: B3 on every leaf."""
+    out = [adam_update(*xs, lr, step, b1=b1, b2=b2, eps=eps,
+                       weight_decay=weight_decay)
+           for xs in zip(*(tree_lib.leaves(t) for t in (p, g, mu, nu)))]
+    return _unzip(p, out, 3)
+
+
+def fused_adam_sig(p, g, mu, nu, r, lr, step, v_t, b1: float = 0.9,
+                   b2: float = 0.999, eps: float = 1e-8, floor: float = 1e-8,
+                   scale: float = 1.0):
+    """``(sig, new_mu, new_nu, new_residual, u)`` trees: B2 on every
+    leaf."""
+    out = [adam_sig_update(*xs, lr, step, v_t, b1=b1, b2=b2, eps=eps,
+                           floor=floor, scale=scale)
+           for xs in zip(*(tree_lib.leaves(t) for t in (p, g, mu, nu, r)))]
+    return _unzip(p, out, 5)
+
+
+def adam_isp_tree(grads: PyTree, state, params: PyTree, residual: PyTree,
+                  hparams: dict, v_t: float, scale: float,
+                  floor: float = 1e-8):
+    """The worker's Adam + ISP step through B2: ``optim.adam``'s update
+    (``hparams`` are its settings) scaled by ``scale`` (``1/P_active``),
+    accumulated into ``residual`` and split at ``v_t``.
+
+    Returns ``(u, sig, new_residual, new_state)``: the same ``OptState``
+    layout and step increment as ``optim.adam``, so checkpoints cross
+    between the fused and the unfused path and the JAX package.
+    """
+    from repro_torch.optim import OptState
+
+    if hparams.get("weight_decay"):
+        raise ValueError("the fused Adam + ISP step has no weight decay")
+    step = int(state.step)
+    lr = np.float32(hparams["lr"])
+    if hparams.get("lr_decay"):
+        lr = lr / np.sqrt(np.maximum(np.float32(step), np.float32(1.0)))
+    sig, mu, nu, res, u = fused_adam_sig(
+        params, grads, state.mu, state.nu, residual, float(lr), step, v_t,
+        b1=hparams["b1"], b2=hparams["b2"], eps=hparams["eps"], floor=floor,
+        scale=float(np.float32(scale)))
+    return u, sig, res, OptState(state.step + 1, mu, nu)

@@ -9,6 +9,10 @@ for a tensor that lies on the CPU; nothing on the CUDA path calls these.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 _BIT = torch.arange(8, dtype=torch.uint8)
@@ -97,3 +101,87 @@ def wire_unpack_ref(
     bits, vals = _gather_support(mask_bytes, cvals, n, dtype)
     zero = torch.zeros((), dtype=dtype, device=mask_bytes.device)
     return torch.where(bits, vals, zero)
+
+
+# -- fused Adam (B3) and fused Adam + significance (B2) --------------------------
+
+
+class AdamScalars(NamedTuple):
+    """The host-side scalar block of B2/B3, every entry a float32 value.
+
+    ``lr, b1, b2, eps, bc1, bc2, last`` are the TPU kernel's (1, 8) block
+    (``last`` is ``v_t`` for B2, the weight decay for B3); ``scale`` sits in
+    the slot the TPU kernel leaves at 0 and is the ``1/P_active`` factor B2
+    applies to ``u``; ``omb1 = 1 - b1`` and ``omb2 = 1 - b2`` are rounded
+    once from double, as the JAX package's ``adam_ref`` and ``optim.adam``
+    round them.
+    """
+
+    lr: float
+    b1: float
+    b2: float
+    eps: float
+    bc1: float
+    bc2: float
+    last: float
+    scale: float
+    omb1: float
+    omb2: float
+
+
+@functools.lru_cache(maxsize=64)
+def adam_scalars(lr, b1: float, b2: float, eps: float, step, last=0.0,
+                 scale=1.0) -> AdamScalars:
+    """The scalar block for Adam at 1-indexed ``step``: bias corrections
+    ``1 - b^t`` in float32, as ``repro.kernels.fused_adam._scalars``
+    computes them. Cached: the leaves of one step share one block."""
+    f = np.float32
+    t = np.maximum(f(step), f(1.0))
+    bc1 = f(1.0) - np.power(f(b1), t)
+    bc2 = f(1.0) - np.power(f(b2), t)
+    vals = (f(lr), f(b1), f(b2), f(eps), bc1, bc2, f(last), f(scale),
+            f(1.0 - b1), f(1.0 - b2))
+    return AdamScalars(*(float(v) for v in vals))
+
+
+def _adam_core(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+               s: AdamScalars):
+    """``(mu', nu', step)`` in float32, one rounding per operation.
+
+    The divisors are 0-d tensors on the data's device: PyTorch on CUDA
+    divides by a Python scalar as a multiply by its reciprocal, which is
+    not the rounded quotient the kernel computes.
+    """
+    dev = g.device
+    bc1 = torch.tensor(s.bc1, dtype=torch.float32, device=dev)
+    bc2 = torch.tensor(s.bc2, dtype=torch.float32, device=dev)
+    gf = g.to(torch.float32)
+    mu2 = s.b1 * mu.to(torch.float32) + s.omb1 * gf
+    nu2 = s.b2 * nu.to(torch.float32) + s.omb2 * (gf * gf)
+    upd = -s.lr * (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + s.eps)
+    return mu2, nu2, upd
+
+
+def adam_ref(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+             nu: torch.Tensor, s: AdamScalars):
+    """One Adam update with decoupled weight decay ``s.last``; returns
+    ``(new_p, new_mu, new_nu)`` (``repro.kernels.ref.adam_ref``)."""
+    mu2, nu2, upd = _adam_core(g, mu, nu, s)
+    pf = p.to(torch.float32)
+    if s.last:
+        lr_wd = float(np.float32(s.lr) * np.float32(s.last))
+        upd = upd - lr_wd * pf
+    return (pf + upd).to(p.dtype), mu2.to(mu.dtype), nu2.to(nu.dtype)
+
+
+def adam_sig_ref(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                 nu: torch.Tensor, r: torch.Tensor, s: AdamScalars,
+                 floor: float = 1e-8):
+    """Adam update -> ``u * s.scale`` -> residual accumulate -> split at
+    ``v_t = s.last``; returns ``(sig, new_mu, new_nu, new_residual, u)``
+    (``repro.kernels.ref.adam_sig_ref`` plus the scaled update ``u``,
+    which the worker applies locally)."""
+    mu2, nu2, upd = _adam_core(g, mu, nu, s)
+    u = upd * s.scale
+    sig, res = significance_ref(u, p, r, s.last, floor)
+    return sig, mu2, nu2, res, u

@@ -2,7 +2,10 @@
 
     python -m repro_torch.launch.train --runtime faas --workload pmf \\
         --workload-cfg '{"n_users":10681,"n_movies":71567,"rank":20}' \\
+        --optimizer nesterov --lr 0.08 \\
         --workers 4 --steps 10 --invocation-steps 5 --device cuda
+    python -m repro_torch.launch.train --runtime faas --workload lr \\
+        --workload-cfg '{"n_samples":200000}' --optimizer adam --lr 0.01
 
 runs one MLLess training job on the multi-process FaaS runtime
 (``repro_torch.runtime``) and prints its result as JSON. The job runs on

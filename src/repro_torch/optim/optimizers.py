@@ -29,6 +29,8 @@ class Optimizer:
     name: str
     init: Callable[[PyTree], OptState]
     update: Callable[[PyTree, OptState, PyTree], tuple[PyTree, OptState]]
+    # the settings a fused kernel needs to take ``update``'s place
+    hparams: dict = dataclasses.field(default_factory=dict)
 
 
 def _zeros_like_tree(params: PyTree) -> PyTree:
@@ -115,7 +117,9 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         updates = tree_lib.tree_map(leaf, mu, nu, params)
         return updates, OptState(state.step + 1, mu, nu)
 
-    return Optimizer("adam", init, update)
+    return Optimizer("adam", init, update, dict(
+        lr=lr, b1=b1, b2=b2, eps=eps, lr_decay=lr_decay,
+        weight_decay=weight_decay))
 
 
 _REGISTRY: dict[str, Callable[..., Optimizer]] = {

@@ -12,7 +12,10 @@ Per step t, on the job's device (``cuda`` unless the job says ``cpu``):
 1. fetch the minibatch key (piggybacked on the previous coordinator pull)
    and load the batch;
 2. gradient (autograd) -> optimizer -> ``u_t = update / P_active(t)``;
-3. ISP filter ``sig, residual' = split(residual + u_t)`` through B1
+3. ISP filter ``sig, residual' = split(residual + u_t)``. Under Adam, steps
+   2 and 3 after the gradient are one B2 launch per leaf
+   (``kernels.ops.adam_isp_tree``); under Nesterov and SGD the optimizer
+   runs as tensor code and the filter through B1
    (``kernels.ops.significance_tree``);
 4. encode ``sig`` per shard through the codec (B4 under the default
    ``wire_impl='cuda'``); only the wire bytes leave the device;
@@ -94,7 +97,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
     from repro_torch.core import isp as isp_lib
     from repro_torch.dist.elastic import reintegrate_into
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.ops import significance_tree
+    from repro_torch.kernels.ops import adam_isp_tree, significance_tree
     from repro_torch.runtime import protocol, sharding
     from repro_torch.runtime import workload as workload_lib
 
@@ -143,6 +146,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
     else:
         torch.set_num_threads(1)  # one vCPU per function, like the reference
     optimizer = optim.make(job["optimizer"], job["lr"])
+    fused_adam = optimizer.name == "adam"
     isp = isp_lib.ISPConfig(
         v=float(job["isp_v"]), decay=bool(job.get("isp_decay", True))
     )
@@ -184,10 +188,15 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
 
     def compute(params, opt_state, residual, batch, inv_p, t):
         loss, grads = wl.grad_fn(params, batch)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        u = tree_lib.tree_map(lambda a: a * inv_p, updates)
-        sig, res = significance_tree(
-            u, params, residual, isp.threshold(t), isp.absolute_floor)
+        if fused_adam:
+            u, sig, res, opt_state = adam_isp_tree(
+                grads, opt_state, params, residual, optimizer.hparams,
+                isp.threshold(t), inv_p, isp.absolute_floor)
+        else:
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            u = tree_lib.tree_map(lambda a: a * inv_p, updates)
+            sig, res = significance_tree(
+                u, params, residual, isp.threshold(t), isp.absolute_floor)
         sent = isp_lib.communicated_fraction(sig)
         # conservation witness: sent + residual' - (residual + update)
         inv_err = max(
@@ -325,7 +334,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
             key = key_next
         batch = wl.batch(key)
         t_fetch = tp()
-        # -- compute: grads -> optimizer -> ISP split (B1)
+        # -- compute: grads -> optimizer -> ISP split (B2, or B1)
         p_act = members.p_active(t)
         u, sig, res, opt_state, loss, sent, inv_err = compute(
             params, opt_state, residual, batch, 1.0 / p_act, t)

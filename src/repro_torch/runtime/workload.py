@@ -6,11 +6,14 @@ data, initial parameters and minibatch store identically to every peer and
 to the supervisor: ``build(name, cfg, device)`` is a pure function of its
 arguments.
 
-Only ``pmf`` is ported; ``lr`` raises. The JAX package draws ``params0``
-with ``jax.random``, which torch cannot reproduce, so a config may name an
-npz file under ``"params0"`` holding the initial leaves by path key (``U``,
-``M``) — the parity tests hand the JAX init over that way. Without it the
-port draws a seeded ``torch.Generator`` init, which is NOT a parity init.
+Both of the paper's jobs are here: ``pmf`` (MovieLens-like) and ``lr``
+(dense Criteo-like, 13 features; the runtime's LR job is dense only, as in
+the JAX package). The JAX package draws ``params0`` with ``jax.random``,
+which torch cannot reproduce, so a config may name an npz file under
+``"params0"`` holding the initial leaves by path key (``U``, ``M`` for
+PMF; ``w``, ``b`` for LR) — the parity tests hand the JAX init over that
+way. Without it the port draws a seeded ``torch.Generator`` init, which is
+NOT a parity init.
 """
 
 from __future__ import annotations
@@ -115,7 +118,55 @@ def _pmf(cfg: dict, device: torch.device) -> Workload:
 
 
 def _lr(cfg: dict, device: torch.device) -> Workload:
-    raise NotImplementedError("workload 'lr': not yet ported")
+    from repro_torch.models import lr
+
+    c = {
+        "n_samples": 20_000,
+        "batch_size": 256,
+        "seed": 0,
+        "eval_size": 2048,
+        **cfg,
+    }
+    like = synthetic.CriteoLikeConfig(n_samples=c["n_samples"],
+                                      seed=c["seed"])
+    x, y = synthetic.make_criteo_dense(like)
+    lcfg = lr.LRConfig(n_features=like.n_numerical, sparse=False)
+    if c.get("params0"):
+        with np.load(c["params0"]) as z:
+            params0 = lr.LRParams(
+                w=torch.from_numpy(np.array(z["w"], np.float32)).to(device),
+                b=torch.from_numpy(np.array(z["b"], np.float32)).to(device),
+            )
+        got = (tuple(params0.w.shape), tuple(params0.b.shape))
+        if got != ((lcfg.n_features,), ()):
+            raise ValueError(f"params0 shapes {got} != "
+                             f"{((lcfg.n_features,), ())}")
+    else:
+        gen = torch.Generator().manual_seed(int(c["seed"]))
+        params0 = lr.init(lcfg, gen, device)
+    store = MinibatchStore([x, y], c["batch_size"])
+    rng = np.random.default_rng(c["seed"] + 17)
+    eidx = rng.choice(len(y), min(c["eval_size"], len(y)), replace=False)
+
+    def make_batch(arrays: list[np.ndarray]):
+        xb, yb = arrays
+        return lr.DenseBatch(
+            x=torch.from_numpy(np.ascontiguousarray(xb)).to(device),
+            y=torch.from_numpy(np.ascontiguousarray(yb)).to(device),
+        )
+
+    eval_batch = make_batch([x[eidx], y[eidx]])
+
+    return Workload(
+        name="lr",
+        cfg=c,
+        device=device,
+        params0=params0,
+        grad_fn=partial(lr.grad_fn, lcfg),
+        store=store,
+        make_batch=make_batch,
+        eval_fn=lambda p: float(lr.loss_fn(lcfg, p, eval_batch)),
+    )
 
 
 _REGISTRY: dict[str, Callable[[dict, torch.device], Workload]] = {

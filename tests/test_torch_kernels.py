@@ -1,10 +1,14 @@
-"""The port's kernels (B1, B4, B5) held to the JAX package on the CPU.
+"""The port's kernels (B1, B2, B3, B4, B5) held to the JAX package on the CPU.
 
 On the CPU each wrapper runs its plain PyTorch version; here those plain
 versions are compared bit for bit with the JAX Pallas kernels run in
 interpret mode and with the JAX package's numpy codec, on the same numpy
-inputs. The CUDA kernels themselves are compared with their plain versions
-on the card by ``chip_smoke.py`` and by the ``cuda``-marked test below.
+inputs. B2 and B3 are Adam arithmetic, where the Pallas kernel rounds
+``1 - b2`` in float32 and the JAX ``adam_ref`` (like the port) from double:
+they are held to the JAX kernel at the tolerances of
+``tests/test_kernels.py`` (1e-5, 2e-2 at bfloat16). The CUDA kernels
+themselves are compared with their plain versions on the card by
+``chip_smoke.py`` and by the ``cuda``-marked test below.
 """
 
 from __future__ import annotations
@@ -14,14 +18,19 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+import jax
 import jax.numpy as jnp
+from repro import optim as joptim
+from repro.kernels import fused_adam as jfa
 from repro.kernels import ref as jref
 from repro.kernels import significance as jsig
 from repro.kernels import wire_pack as jwp
 from repro.wire import codec as jcodec
 
-from repro_torch.kernels import build, ref, significance, wire_pack
-from repro_torch.kernels.ops import significance_tree
+from repro_torch import optim
+from repro_torch.kernels import build, fused_adam, ref, significance, wire_pack
+from repro_torch.kernels.ops import (adam_isp_tree, fused_adam as fused_adam_tree,
+                                     fused_adam_sig, significance_tree)
 
 SIZES = (1, 7, 129, 1025, 4097)
 
@@ -199,12 +208,162 @@ def test_plain_versions_launch_nothing():
     u, x, r = (torch.from_numpy(a) for a in _sig_inputs(100, 1))
     sig, _ = significance.significance_filter(u, x, r, 0.3)
     wire_pack.wire_pack(sig, torch.float32)
+    fused_adam.adam_sig_update(u, x, r, r.abs(), sig, 1e-3, 1, 0.3)
+    fused_adam.adam_update(u, x, r, r.abs(), 1e-3, 1)
     assert sum(build.LAUNCHES.values()) == 0
+
+
+def _adam_inputs(shape, seed):
+    """p, g, mu, nu (>= 0) and r as float32 numpy arrays of ``shape``, with
+    -0.0 in g."""
+    rng = np.random.default_rng(seed)
+    p, g, mu, nu, r = (np.asarray(rng.standard_normal(shape), np.float32)
+                       for _ in range(5))
+    g.reshape(-1)[::9] = -0.0
+    return p, g, mu, np.abs(nu, out=nu), np.asarray(r * 1e-3, np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("shape", ((), (1,), (13,), (100,), (256, 128),
+                                   (33, 5)))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("step", (1, 100))
+def test_adam_update_plain_matches_pallas_interpret(shape, dtype, step):
+    p, g, mu, nu, _ = _adam_inputs(shape, seed=len(shape) + step)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    got = fused_adam.adam_update(
+        torch.from_numpy(p).to(tdt), torch.from_numpy(g).to(tdt),
+        torch.from_numpy(mu), torch.from_numpy(nu), 1e-3, step)
+    want = jfa.adam_update(jnp.asarray(p, jdt), jnp.asarray(g, jdt),
+                           jnp.asarray(mu), jnp.asarray(nu), 1e-3, step,
+                           interpret=True)
+    assert got[0].dtype == tdt and got[0].shape == shape
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    for a, b in zip(got, want):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("wd", (0.0, 0.1))
+def test_adam_update_weight_decay_matches_pallas_interpret(wd):
+    p, g, _, _, _ = _adam_inputs((128,), seed=8)
+    z = np.zeros(128, np.float32)
+    got = fused_adam.adam_update(*(torch.from_numpy(a) for a in (p, g, z, z)),
+                                 1e-2, 1, weight_decay=wd)
+    want = jfa.adam_update(*(jnp.asarray(a) for a in (p, g, z, z)), 1e-2, 1,
+                           weight_decay=wd, interpret=True)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", ((), (1,), (13,), (500,), (64, 200)))
+@pytest.mark.parametrize("v_t", (0.0, 0.7))
+@pytest.mark.parametrize("step", (1, 5, 100))
+def test_adam_sig_plain_matches_pallas_interpret(shape, v_t, step):
+    p, g, mu, nu, r = _adam_inputs(shape, seed=9 + step)
+    t = [torch.from_numpy(a) for a in (p, g, mu, nu, r)]
+    sig, mu2, nu2, res, u = fused_adam.adam_sig_update(*t, 1e-3, step, v_t)
+    want = jfa.adam_sig_update(*(jnp.asarray(a) for a in (p, g, mu, nu, r)),
+                               1e-3, step, v_t, interpret=True)
+    for a, b in zip((sig, mu2, nu2, res), want):
+        assert a.shape == shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+    # conservation: sig + res == r + u exactly; the mask is sig != 0
+    assert torch.equal(sig + res, t[4] + u)
+    assert torch.equal(sig != 0, (sig != 0) & (res == 0))
+
+
+@pytest.mark.parametrize("step", (1, 100))
+def test_adam_sig_u_at_one_third_matches_jax_optim(step):
+    """B2's ``u`` at scale 1/3 is ``repro.optim.adam``'s update times 1/3
+    (the JAX worker's ``a * inv_p`` with three workers)."""
+    p, g, mu, nu, r = _adam_inputs((300,), seed=11)
+    jopt = joptim.adam(1e-2)
+    js = joptim.OptState(jnp.asarray(step, jnp.int32), jnp.asarray(mu),
+                         jnp.asarray(nu))
+    ju, _ = jopt.update(jnp.asarray(g), js, jnp.asarray(p))
+    want = np.asarray(ju * (1.0 / 3.0))
+    out = fused_adam.adam_sig_update(
+        *(torch.from_numpy(a) for a in (p, g, mu, nu, r)), 1e-2, step, 0.5,
+        scale=1.0 / 3.0)
+    np.testing.assert_allclose(out[4].numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("inv_p", (1.0, 0.25, 1.0 / 3.0))
+@pytest.mark.parametrize("lr_decay", (False, True))
+def test_fused_worker_step_equals_adam_then_filter(inv_p, lr_decay):
+    """``adam_isp_tree`` against the port's unfused worker step,
+    ``optim.adam`` -> ``* inv_p`` -> ``significance_ref``, over three steps
+    on a tree with a 0-d leaf: masks identical, values within 1e-6."""
+    rng = np.random.default_rng(12)
+    params = {"w": torch.from_numpy(rng.standard_normal(257).astype(
+        np.float32)), "b": torch.tensor(0.0)}
+    opt = optim.adam(1e-2, lr_decay=lr_decay)
+    fs = us = opt.init(params)
+    fres = ures = {k: torch.zeros_like(v) for k, v in params.items()}
+    for t in (1, 2, 3):
+        grads = {k: torch.from_numpy(rng.standard_normal(v.shape).astype(
+            np.float32)) for k, v in params.items()}
+        v_t = 0.7 / np.sqrt(t)
+        fu, fsig, fres, fs = adam_isp_tree(grads, fs, params, fres,
+                                           opt.hparams, v_t, inv_p)
+        upd, us = opt.update(grads, us, params)
+        uu = {k: a * inv_p for k, a in upd.items()}
+        usig, ures = significance_tree(uu, params, ures, v_t)
+        for k in params:
+            assert torch.equal(fsig[k] != 0, usig[k] != 0)
+            for a, b in ((fu, uu), (fsig, usig), (fres, ures),
+                         (fs.mu, us.mu), (fs.nu, us.nu)):
+                np.testing.assert_allclose(a[k].numpy(), b[k].numpy(),
+                                           rtol=1e-6, atol=0)
+        assert fs.step.dtype == torch.int32 and int(fs.step) == int(
+            us.step) == t + 1
+        params = {k: params[k] + fu[k] for k in params}
+
+
+def test_tree_entry_points_run_per_leaf():
+    p, g, mu, nu, r = _adam_inputs((40,), seed=13)
+    leaves = [torch.from_numpy(a) for a in (p, g, mu, nu, r)]
+    trees = [{"a": x[:30], "z": x[30:].reshape(2, 5)} for x in leaves]
+    got = fused_adam_sig(*trees, 1e-3, 2, 0.3)
+    want = fused_adam.adam_sig_update(*leaves, 1e-3, 2, 0.3)
+    for gt, w in zip(got, want):
+        assert torch.equal(torch.cat([gt["a"], gt["z"].reshape(-1)]), w)
+    got = fused_adam_tree(*trees[:4], 1e-3, 2, weight_decay=0.1)
+    want = fused_adam.adam_update(*leaves[:4], 1e-3, 2, weight_decay=0.1)
+    for gt, w in zip(got, want):
+        assert torch.equal(torch.cat([gt["a"], gt["z"].reshape(-1)]), w)
+
+
+def test_adam_wrappers_reject_what_the_kernels_do_not_take():
+    f = torch.zeros(8)
+    with pytest.raises(TypeError):
+        fused_adam.adam_sig_update(f.double(), f, f, f, f, 1e-3, 1, 0.5)
+    with pytest.raises(ValueError):
+        fused_adam.adam_sig_update(f, f, f[:4], f, f, 1e-3, 1, 0.5)
+    with pytest.raises(TypeError):
+        fused_adam.adam_update(f.half(), f.half(), f, f, 1e-3, 1)
+    with pytest.raises(TypeError):
+        fused_adam.adam_update(f, f.bfloat16(), f, f, 1e-3, 1)
+    with pytest.raises(TypeError):
+        fused_adam.adam_update(f, f, f.bfloat16(), f, 1e-3, 1)
+    with pytest.raises(ValueError):
+        adam_isp_tree({"a": f}, optim.adam(1e-3, weight_decay=0.1).init(
+            {"a": f}), {"a": f}, {"a": f},
+            optim.adam(1e-3, weight_decay=0.1).hparams, 0.5, 1.0)
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
-    """B1, B4, B5 bit-exact against their plain versions on a CUDA card."""
+    """B1, B2, B3, B4, B5 bit-exact against their plain versions on a CUDA
+    card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check)")
     dev = torch.device("cuda")
@@ -223,4 +382,20 @@ def test_kernels_match_plain_versions_on_the_card():
         t = torch.randn(n, device=dev)
         assert _bits(wire_pack.wire_unpack_add(t, rp[0], rp[2][:k]).cpu()) \
             == _bits(ref.wire_unpack_add_ref(t, rp[0], rp[2][:k]).cpu())
+        ins = [torch.from_numpy(a).to(dev) for a in _adam_inputs((n,), n)]
+        for step, v_t, scale in ((1, 0.0, 1.0), (100, 0.7, 1.0 / 3.0)):
+            got = fused_adam.adam_sig_update(*ins, 1e-3, step, v_t,
+                                             scale=scale)
+            s = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, step, v_t, scale)
+            for g, w in zip(got, ref.adam_sig_ref(*ins, s)):
+                assert _bits(g.cpu()) == _bits(w.cpu())
+        for dt in (torch.float32, torch.bfloat16):
+            for wd in (0.0, 0.1):
+                bi = [ins[0].to(dt), ins[1].to(dt), ins[2], ins[3]]
+                got = fused_adam.adam_update(*bi, 1e-3, 100, weight_decay=wd)
+                s = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, 100, wd)
+                for g, w in zip(got, ref.adam_ref(*bi, s)):
+                    assert _bits(g.cpu()) == _bits(w.cpu())
     assert build.LAUNCHES["significance_filter"] == 4
+    assert build.LAUNCHES["adam_sig_update"] == 8
+    assert build.LAUNCHES["adam_update"] == 16

@@ -154,8 +154,10 @@ def test_every_module_imports_without_jax_or_repro():
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
         "       or m.startswith(('jax.', 'repro.'))]\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 30 else 0)\n"
+        "missing = {'repro_torch.models.lr', 'repro_torch.kernels.fused_adam',\n"
+        "           'repro_torch.kernels.ops'} - set(names)\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 32 else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=dict(os.environ, PYTHONPATH=SRC),
@@ -186,8 +188,7 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
         supervisor.Supervisor(FaaSJobConfig(run_dir=str(tmp_path / "s")))
 
 
-@pytest.mark.parametrize("kw", ({"transport": "shm"}, {"consistency": "ssp"},
-                                {"workload": "lr"}))
+@pytest.mark.parametrize("kw", ({"transport": "shm"}, {"consistency": "ssp"}))
 def test_unported_options_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError):
         supervisor.Supervisor(FaaSJobConfig(run_dir=str(tmp_path), device="cpu",
