@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("significance", "wire_pack", "fused_adam")
+SOURCES = ("significance", "wire_pack", "fused_adam", "flash_attention",
+           "slstm_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -51,6 +52,8 @@ _ARGTYPES = {
     "adam_sig_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                _FP, _F, _P],
     "adam_update_launch": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _FP, _P],
+    "flash_attention_launch": [_P, _P, _P, _P] + [_I] * 10 + [_F, _P],
+    "slstm_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 

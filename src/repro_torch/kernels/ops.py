@@ -1,7 +1,8 @@
 """Tree-level entry points of the port's kernels.
 
 ``significance_tree`` is the ISP filter of the worker's Nesterov and SGD
-steps: B1 on every leaf. ``adam_isp_tree`` is the worker's whole Adam + ISP
+steps: B1 on every leaf. ``flash_attention`` is B7 on (B, S, H, Dh)
+tensors. ``adam_isp_tree`` is the worker's whole Adam + ISP
 step: B2 on every leaf. ``fused_adam`` and ``fused_adam_sig`` apply B3 and
 B2 leaf by leaf over trees of one structure (a single tensor is a tree of
 one leaf). Each runs the kernel for CUDA leaves and its plain version for
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.fused_adam import adam_sig_update, adam_update
 from repro_torch.kernels.significance import significance_filter
 
@@ -37,6 +39,17 @@ def significance_tree(updates: PyTree, params: PyTree, residual: PyTree,
                            tree_lib.leaves(residual))
     ]
     return _unzip(params, out, 2)
+
+
+def flash_attention(q, k, v, causal: bool = True, window=None,
+                    q_offset: int = 0):
+    """(B, S, H, Dh) attention (``repro.kernels.ops.flash_attention``).
+
+    k and v may carry fewer heads than q (GQA, never repeated) and nothing
+    is padded: the kernel takes the true Dh and ragged lengths.
+    """
+    return flash.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
 
 
 def fused_adam(p, g, mu, nu, lr, step, b1: float = 0.9, b2: float = 0.999,

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each function computes what its CUDA kernel computes, element for element,
-and is the ground truth the kernel is held to bit for bit on the card
-(``chip_smoke.py``) and against the JAX package on the CPU
-(``tests/test_torch_kernels.py``). A wrapper takes its plain version only
+Each function computes what its CUDA kernel computes and is the ground
+truth the kernel is held to on the card (``chip_smoke.py``: bit for bit for
+B1-B5, at stated tolerances for the float32 sums of B7 and B8) and against
+the JAX package on the CPU (``tests/test_torch_*.py``). A wrapper takes its plain version only
 for a tensor that lies on the CPU; nothing on the CUDA path calls these.
 """
 
@@ -185,3 +185,79 @@ def adam_sig_ref(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     u = upd * s.scale
     sig, res = significance_ref(u, p, r, s.last, floor)
     return sig, mu2, nu2, res, u
+
+
+# -- flash attention (B7) ------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, window=None, q_offset: int = 0
+            ) -> torch.Tensor:
+    """Dense masked attention in float32 (``repro.kernels.ref.mha_ref``).
+
+    q (B, Sq, H, Dh), k and v (B, Skv, K, Dh) with H a multiple of K: query
+    head h reads KV head h // (H / K). Masked logits are -1e30, so a row
+    with no allowed key averages v as the JAX reference does. Output in
+    ``q.dtype``.
+    """
+    b, sq, h, dh = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    qg = q.float().reshape(b, sq, kh, h // kh, dh)
+    logits = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * scale
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    allow = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        allow &= k_pos <= q_pos
+    if window is not None:
+        allow &= q_pos - k_pos < window
+    logits = torch.where(allow, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqc,bckd->bqkgd", probs, v.float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+# -- sLSTM scan (B8) -----------------------------------------------------------
+
+
+def slstm_cell(r: torch.Tensor, xg: torch.Tensor, state):
+    """One sLSTM step (``repro.models.xlstm._slstm_cell``): ``xg`` (B, 4d)
+    input gates, ``r`` (H, dh, 4dh) float32 recurrent weights, ``state``
+    ``(c, n, h)`` each (B, d) float32. Returns ``((c', n', h'), h')``."""
+    c, n, h = state
+    b, d = c.shape
+    hh = r.shape[0]
+    dh = d // hh
+    rh = torch.einsum("bhd,hde->bhe", h.reshape(b, hh, dh), r)
+    # per-head gates contiguous -> the fused (i | f | z | o) layout of w_in
+    rh = rh.reshape(b, hh, 4, dh).transpose(1, 2).reshape(b, 4 * d)
+    g = xg + rh
+    i = torch.exp(torch.clamp(g[:, 0 * d:1 * d], max=8.0))
+    f = torch.sigmoid(g[:, 1 * d:2 * d])
+    z = torch.tanh(g[:, 2 * d:3 * d])
+    o = torch.sigmoid(g[:, 3 * d:4 * d])
+    c1 = f * c + i * z
+    n1 = f * n + i
+    h1 = o * (c1 / torch.clamp(n1.abs(), min=1.0))
+    return (c1, n1, h1), h1
+
+
+def slstm_scan_ref(xg: torch.Tensor, r: torch.Tensor, state=None):
+    """The sequential scan of ``slstm_cell`` over ``xg`` (B, S, 4d) float32
+    from ``state`` (zeros when None); returns ``(h (B, S, d), (c, n, h))``."""
+    b, s, four_d = xg.shape
+    d = four_d // 4
+    if state is None:
+        state = tuple(torch.zeros(b, d, dtype=torch.float32,
+                                  device=xg.device) for _ in range(3))
+    rf = r.float()
+    hs = []
+    for t in range(s):
+        state, h = slstm_cell(rf, xg[:, t], state)
+        hs.append(h)
+    out = (torch.stack(hs, 1) if hs else
+           torch.zeros(b, 0, d, dtype=torch.float32, device=xg.device))
+    return out, tuple(state)
