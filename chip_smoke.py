@@ -24,7 +24,16 @@ Phases (any failure exits non-zero; nothing is caught):
    ``ref.slstm_scan_ref`` on h and the final (c, n, h), from a zero and a
    non-zero state, at B 2, S 16, d 64, H 2 (2e-5) and at xlstm-1.3b's
    prefill (B 4, S 1024, d 2048, H 4; 1e-4). Tolerances: those of the JAX
-   package's own kernel tests; both sum in float32 in another order;
+   package's own kernel tests; both sum in float32 in another order.
+   The pod path's kernels: B6 (wire nnz) bit-exact at the sizes above and
+   at lm-100m's pod-stacked 75,497,472 and 100,663,296 elements, float32,
+   float16, bfloat16 and int32, with -0.0, a NaN, an all-zero tile and
+   unaligned starts; B1 bit-exact on bfloat16 and float16 with x shared by
+   a leading pod dimension; B7 also at Dh 32 and at lm-100m's and lm-8m's
+   training shapes, and the gradients of one lm-100m attention block
+   through its autograd Function against plain autograd (2e-2); the
+   eviction pull at P_old 3, 5, 7 against numpy's float32 division, bit
+   for bit;
 4. main paths — ``python -m repro_torch.launch.train --runtime faas``,
    4 workers, 10 steps, 5 steps per invocation, each once with
    ``--wire-scheme bitmap`` and once with ``auto``: the PMF job at ML-10M
@@ -48,7 +57,16 @@ Phases (any failure exits non-zero; nothing is caught):
    blocks), 8 requests, 4 slots, prompt 1024, 32 new tokens each, one
    after the other in fresh processes: B7 must launch 32 times and B8 6
    times (one prefill), and the new tokens must be the reference loop's
-   count. Last, each arch cut in depth (phi4 2 layers, xlstm one
+   count. The in-process trainer, ``python -m repro_torch.launch.train
+   --runtime inproc --arch lm-100m --mode isp-pod`` at the JAX CLI's
+   defaults (4 pods x 4 sequences x 256 tokens, Adam 3e-4, v 0.7), 10
+   steps with ``--scheme bitmap`` and with ``--scheme topk --budget
+   0.01``: B1 and B6 110 launches each and B7 480, the loss finite and
+   lower at the last step than at the first, the sent fraction in (0, 1);
+   lm-8m under ``--autotune --sched-interval 0.1`` with checkpoints; in
+   this process one profiled lm-100m step (busy share) and a scripted
+   scale-in from 4 pods to 3 (the flushed parameters bit-exact against
+   the plain float32 sum, then two steps at 3 pods). Last, each arch cut in depth (phi4 2 layers, xlstm one
    superblock), float32, the same seeded parameters on the card and on
    the CPU: prefill logits of a 128-token prompt in 2 slots within 1e-3,
    and the first 4 greedy tokens compared (TF32 off for matmul and cuDNN).
@@ -116,7 +134,22 @@ KERNELS.update({
                         "src/repro/kernels/flash_attention.py:148"),
     "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_scan.cu",
                    "src/repro/kernels/slstm_scan.py:105"),
+    "wire_nnz": ("src/repro_torch/kernels/csrc/wire_pack.cu",
+                 "src/repro/kernels/wire_pack.py:191"),
 })
+# the pod path at lm-100m, 4 pods: the (12, 768, 2048) FF leaves stacked
+# over the pods, and the tied (32768, 768) embedding, the largest
+POD_FF_LEAF, POD_TOK_LEAF = 4 * 12 * 768 * 2048, 4 * 32768 * 768
+POD_SIZES = SIZES + (POD_FF_LEAF, POD_TOK_LEAF)
+# the in-process trainer's legs (the JAX CLI's defaults at lm-100m width)
+POD_ARGS = ["--arch", "lm-100m", "--mode", "isp-pod", "--workers", "4",
+            "--per-worker-batch", "4", "--seq", "256", "--steps", "10"]
+POD_LEGS = (("bitmap", ["--scheme", "bitmap"]),
+            ("topk", ["--scheme", "topk", "--budget", "0.01"]))
+# per 10-step lm-100m leg: 11 leaves a step for B1 and B6, 12 layers x 4
+# pods a step for B7 (its forward; the backward recomputes the plain form)
+POD_LAUNCHES = {"significance_filter": 110, "wire_nnz": 110,
+                "flash_attention": 480}
 BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 # B7 and B8 sum in float32 in another order than their plain versions:
 # the tolerances of the JAX package's own tests (tests/test_kernels.py)
@@ -338,14 +371,16 @@ def _randn(shape, gen, dev, dtype=None, scale: float = 1.0):
 # (B, Sq, Skv, H, K, Dh, causal, window, q_offset) of the B7 sweep
 FLASH_CASES = (
     [(2, 256, 256, 2, 2, dh, causal, None, 0)
-     for dh in (64, 128, 256) for causal in (True, False)]
+     for dh in (32, 64, 128, 256) for causal in (True, False)]
     + [(1, 256, 256, 2, 2, 128, True, w, 0) for w in (64, 128)]
     + [(1, 128, 384, 2, 2, 128, True, None, 256),  # q_offset
        (2, 200, 200, 2, 2, 128, True, None, 0),  # ragged
        (1, 1000, 1000, 2, 2, 64, True, None, 0),
        (1, 1000, 1000, 2, 2, 256, False, 128, 0),
        (2, 333, 333, 24, 8, 128, True, None, 0),  # GQA 24/8
-       (4, 1024, 1024, 24, 8, 128, True, None, 0)])  # phi4-mini prefill
+       (4, 1024, 1024, 24, 8, 128, True, None, 0),  # phi4-mini prefill
+       (4, 256, 256, 12, 12, 64, True, None, 0),  # lm-100m training
+       (4, 256, 256, 8, 8, 32, True, None, 0)])  # lm-8m training
 
 
 def check_flash(dev) -> float:
@@ -420,6 +455,160 @@ def check_slstm(dev) -> float:
         log("kernel-check", kernel="slstm_scan", B=b, S=s, d=d, H=heads,
             r_dtype=str(rdt).split(".")[1], initial_state=st,
             max_abs_err=err, tolerance=tol)
+    return worst
+
+
+# -- phase 3c: the pod path's kernels and reintegration --------------------------
+
+
+def _pod_values(n: int, gen, dev):
+    """float32 values on the card with zeros (60%), -0.0, a NaN and a
+    leading all-zero 32,768-element tile (the TPU kernels' tile)."""
+    import torch
+
+    x = torch.randn(n, generator=gen, device=dev)
+    x[torch.rand(n, generator=gen, device=dev) < 0.6] = 0.0
+    x[1::11] = -0.0
+    if n > 2 * 32768:
+        x[:32768] = 0.0
+        x[32768 + 5] = float("nan")
+    return x
+
+
+def check_pod_kernels(dev, err: dict) -> None:
+    """B6 against its plain version on the card at POD_SIZES for float32,
+    float16, bfloat16 and int32 (and once from an unaligned start), and B1
+    on bfloat16 and float16 with x shared by a leading pod dimension (3
+    pods; 4 at the lm-100m FF leaf), bit for bit."""
+    import torch
+
+    from repro_torch.kernels import ref, significance, wire_pack
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    for n in POD_SIZES:
+        x = _pod_values(n, gen, dev)
+        cases = [x, x.half(), x.bfloat16(), (x.nan_to_num(0.0) * 1000).int()]
+        if n > 1:  # unaligned starts: the kernel's element-wise path
+            cases += [x[1:], cases[2][1:]]
+        for t in cases:
+            got, want = wire_pack.wire_nnz(t), ref.wire_nnz_ref(t)
+            require(got.dtype == torch.int32 and int(got) == int(want),
+                    f"wire_nnz differs at n={t.numel()} {t.dtype}: "
+                    f"{int(got)} != {int(want)}")
+            err["wire_nnz"] = max(err["wire_nnz"],
+                                  float(abs(int(got) - int(want))))
+        del x, cases
+    for n in SIZES + (POD_FF_LEAF // 4,):
+        pods = 4 if n == POD_FF_LEAF // 4 else 3
+        for dt in (torch.bfloat16, torch.float16):
+            u = (torch.randn(pods, n, generator=gen, device=dev) * 0.01)
+            x = torch.randn(n, generator=gen, device=dev)
+            r = (torch.randn(pods, n, generator=gen, device=dev) * 0.01)
+            u[:, ::5] = -0.0
+            x[::7] = 0.0
+            x[: min(n, 256)] = 0.0
+            r[:, : min(n, 256)] = -0.0
+            u, x, r = u.to(dt), x.to(dt), r.to(dt)
+            got = significance.significance_filter(u, x, r, 0.5)
+            want = ref.significance_ref(u, x, r, 0.5)
+            for g, w in zip(got, want):
+                require(_same(g, w), f"significance_filter differs at "
+                        f"pods={pods} n={n} {dt}")
+                err["significance_filter"] = max(
+                    err["significance_filter"], _abs_err(g, w))
+            del u, x, r, got, want
+    torch.cuda.synchronize(dev)
+    log("kernel-check", kernel="wire_nnz", max_abs_err=err["wire_nnz"],
+        sizes=",".join(map(str, POD_SIZES)),
+        dtypes="float32,float16,bfloat16,int32")
+    log("kernel-check", kernel="significance_filter", pods="3,4",
+        dtypes="bfloat16,float16", max_abs_err=err["significance_filter"],
+        sizes=",".join(map(str, SIZES + (POD_FF_LEAF // 4,))))
+
+
+def check_reintegration(dev) -> None:
+    """The eviction pull ``x + (l - x) / P_old`` on card tensors, with the
+    divisor as the FaaS worker passes it (a 0-d float32 device tensor) and
+    as a Python int, against numpy's float32 division: bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.elastic import reintegrate_into
+
+    rng = np.random.default_rng(5)
+    own = rng.standard_normal(1 << 20).astype(np.float32)
+    leaving = rng.standard_normal(1 << 20).astype(np.float32)
+    for p_old in (3, 5, 7):
+        want = own + (leaving - own) / np.float32(p_old)
+        pool = torch.full((), float(p_old), dtype=torch.float32, device=dev)
+        for divisor in (pool, p_old):
+            got = reintegrate_into(torch.from_numpy(own).to(dev),
+                                   torch.from_numpy(leaving).to(dev),
+                                   divisor).cpu().numpy()
+            require(got.tobytes() == want.tobytes(),
+                    f"reintegrate_into at P_old={p_old} differs from numpy")
+        log("reintegration", p_old=p_old, n=own.size, bit_exact=True)
+
+
+def check_attention_grads(dev) -> float:
+    """One lm-100m attention block (bf16, B 4, S 256; projections, RoPE,
+    B7, output projection) on the card: the loss's gradients with respect
+    to x, wq, wk, wv and wo through FlashAttention, against the same block
+    with plain autograd through ``ref.mha_ref``, within 2e-2; every input
+    must get a finite, nonzero gradient and B7 must launch once."""
+    import torch
+
+    from repro_torch.kernels import build, ref
+    from repro_torch.launch.train import LM_100M
+    from repro_torch.models import attention
+
+    cfg, spec = LM_100M, LM_100M.groups[0][0][0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    d = cfg.d_model
+    x = _randn((4, 256, d), gen, dev, torch.bfloat16)
+    p = {k: _randn((d, d), gen, dev, torch.bfloat16, d ** -0.5)
+         for k in ("wq", "wk", "wv", "wo")}
+    go = _randn((4, 256, d), gen, dev, torch.bfloat16)
+    inputs = [x] + [p[k] for k in ("wq", "wk", "wv", "wo")]
+
+    def grads(plain: bool):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        params = dict(zip(("wq", "wk", "wv", "wo"), leaves[1:]))
+        kernel = attention.ops.flash_attention
+        if plain:
+            attention.ops.flash_attention = (
+                lambda q, k, v, causal=True, **kw: ref.mha_ref(q, k, v,
+                                                               causal=causal))
+        try:
+            out, _ = attention.attn_apply(cfg, spec, params, leaves[0])
+        finally:
+            attention.ops.flash_attention = kernel
+        return torch.autograd.grad(out, leaves, go)
+
+    build.reset_launches()
+    got = grads(plain=False)
+    require(build.LAUNCHES["flash_attention"] == 1,
+            "attention block: B7 did not launch")
+    want = grads(plain=True)
+    torch.cuda.synchronize(dev)
+    worst = 0.0
+    tol = FLASH_TOL["bfloat16"]
+    for name, g, w in zip(("x", "wq", "wk", "wv", "wo"), got, want):
+        require(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                f"attention block: no gradient for {name}")
+        # bf16 products summed over 1,024 tokens cancel: the error is held
+        # to the gradient's scale, not entry by entry
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        require(err <= tol * scale, f"attention block gradient of {name}: "
+                f"off by {err} at scale {scale} (tolerance {tol} x scale)")
+        log("kernel-check", kernel="flash_attention", what="lm-100m "
+            "attention block gradient through FlashAttention vs plain "
+            "autograd", input=name, max_abs_err=err, scale=scale,
+            tolerance=f"{tol} x scale")
+        worst = max(worst, err / scale)
     return worst
 
 
@@ -633,6 +822,183 @@ def invariants(tmp: str, runs: dict) -> None:
             require(all(results[3]["kernel_launches_by_worker"][w].get(
                 "adam_sig_update", 0) > 0 for w in ("0", "1")),
                 "lr-small: B2 not launched on the card")
+
+
+# -- phase 4c: the in-process isp-pod trainer --------------------------------
+
+
+def _inproc_cmd(out: str, extra: list) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.train", "--runtime",
+            "inproc", *extra, "--log-every", "100", "--out", out]
+
+
+def _run_inproc(tmp: str, label: str, extra: list,
+                timeout_s: float = 300.0) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    out = os.path.join(tmp, f"pod_{label}.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(_inproc_cmd(out, extra), env=env,
+                          capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"pod leg {label} failed "
+            f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    res["process_wall_s"] = wall
+    return res
+
+
+def pod_paths(tmp: str) -> dict:
+    """``python -m repro_torch.launch.train --runtime inproc --arch lm-100m
+    --mode isp-pod`` at the JAX CLI's defaults (4 pods x 4 x 256 tokens,
+    Adam at 3e-4, v 0.7), 10 steps, once per POD_LEGS scheme, each in a
+    fresh process: B1, B6 and B7 must launch POD_LAUNCHES times, the loss
+    must be finite and its last step below its first, and the sent
+    fraction strictly between 0 and 1. Then lm-8m (Dh 32) under the
+    auto-tuner with checkpoints, which reports its final pool."""
+    out = {}
+    for label, extra in POD_LEGS:
+        res = _run_inproc(tmp, label, POD_ARGS + extra)
+        losses = [h["loss"] for h in res["history"]]
+        steady_s = [h["step_s"] for h in res["history"][1:]]
+        launches = res["kernel_launches"]
+        log("pod-path", leg=label, arch=res["arch"], n_params=res["n_params"],
+            steps=res["steps"], final_pool=res["final_pool"],
+            first_loss=losses[0], final_loss=losses[-1],
+            mean_sent_fraction=res["mean_sent_fraction"],
+            first_step_s=res["history"][0]["step_s"],
+            steady_step_s=sum(steady_s) / len(steady_s),
+            wall_s=res["wall_s"], process_wall_s=res["process_wall_s"],
+            peak_memory_bytes=res.get("peak_memory_bytes"),
+            losses=json.dumps(losses),
+            sent=json.dumps([h["sent_fraction"] for h in res["history"]]),
+            launches=json.dumps(launches))
+        for name, want in POD_LAUNCHES.items():
+            require(launches.get(name, 0) == want,
+                    f"pod {label}: {name} launched {launches.get(name, 0)} "
+                    f"times, expected {want}")
+        require(all(x == x and abs(x) < float("inf") for x in losses),
+                f"pod {label}: non-finite loss {losses}")
+        require(losses[-1] < losses[0], f"pod {label}: loss did not fall "
+                f"({losses[0]} -> {losses[-1]})")
+        require(0.0 < res["mean_sent_fraction"] < 1.0,
+                f"pod {label}: mean sent fraction {res['mean_sent_fraction']}")
+        out[label] = res
+    ck = os.path.join(tmp, "pod_autotune_ckpt")
+    res = _run_inproc(tmp, "autotune", [
+        "--arch", "lm-8m", "--mode", "isp-pod", "--workers", "4",
+        "--per-worker-batch", "4", "--seq", "256", "--steps", "20",
+        "--scheme", "bitmap", "--autotune", "--sched-interval", "0.1",
+        "--checkpoint-dir", ck, "--checkpoint-every", "10"])
+    pools = [h["pool"] for h in res["history"]]
+    log("pod-path", leg="autotune", arch=res["arch"], steps=res["steps"],
+        final_pool=res["final_pool"], pools=json.dumps(pools),
+        final_loss=res["final_loss"], wall_s=res["wall_s"],
+        launches=json.dumps(res["kernel_launches"]))
+    require(res["steps"] == 20 and 1 <= res["final_pool"] <= 4,
+            f"pod autotune: steps {res['steps']} pool {res['final_pool']}")
+    require(res["kernel_launches"].get("flash_attention", 0) > 0,
+            "pod autotune: B7 (Dh 32) not launched")
+    require(os.path.isdir(os.path.join(ck, "step_0000000020")),
+            "pod autotune: no checkpoint at step 20")
+    out["autotune"] = res
+    return out
+
+
+def pod_in_process(dev) -> dict:
+    """The lm-100m isp-pod step in this process: two warm steps, one under
+    torch.profiler (device time beside wall time: the card's busy share,
+    and the largest kernels), then a scripted ``_scale_in_pod`` from 4 pods
+    to 3, whose flushed parameters must equal the plain float32 sum of the
+    parameters and the evicted pod's residual bit for bit, and two steps
+    at 3 pods."""
+    import argparse
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import optim, tree as tree_lib
+    from repro_torch.core.isp import ISPConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist.compression import CompressionConfig
+    from repro_torch.dist.elastic import ElasticPlan
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import LM
+
+    lm = LM(train.LM_100M)
+    opt = optim.adam(3e-4)
+    isp, comp = ISPConfig(v=0.7), CompressionConfig(scheme="bitmap")
+    params = lm.init(0, dev)
+    st = train.TrainState(params, train.lift_pod(opt.init(params), 4),
+                          train.lift_pod(tree_lib.tree_map(torch.zeros_like,
+                                                           params), 4), 0, 4)
+
+    def run(steps: int) -> list:
+        fn = train.make_pod_step(lm, opt, isp, comp, st.pool)
+        losses = []
+        for _ in range(steps):
+            pipe = TokenPipeline(lm.cfg.vocab_size, 256, 4 * st.pool)
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.next_batch(st.step).items()}
+            st.params, st.opt_state, st.residual, loss, _ = fn(
+                st.params, st.opt_state, st.residual, batch, st.step + 1)
+            losses.append(float(loss))
+            st.step += 1
+        return losses
+
+    run(2)
+    torch.cuda.synchronize(dev)
+    build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(1)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    if dev_us <= 0:
+        log("pod-profile", device_ms_per_step="not measured",
+            note="the profiler reported no device time")
+    else:
+        log("pod-profile", arch="lm-100m", pods=4, scheme="bitmap",
+            wall_ms_per_step=wall * 1e3, device_ms_per_step=dev_us / 1e3,
+            busy_share=dev_us / 1e6 / wall,
+            device_ops_per_step=sum(e.count for e in kernels),
+            launches=json.dumps(dict(build.LAUNCHES)),
+            top=json.dumps([[e.key[:60], e.self_device_time_total / 1e3]
+                            for e in top]))
+    before = [x.clone() for x in tree_lib.leaves(st.params)]
+    leaving = [r[3].clone() for r in tree_lib.leaves(st.residual)]
+    st = train._scale_in_pod(argparse.Namespace(checkpoint_dir=None), st,
+                             ElasticPlan(4, 4), isp)
+    require(st.pool == 3, f"scale-in: pool {st.pool}")
+    for x, p, r in zip(tree_lib.leaves(st.params), before, leaving):
+        want = (p.float() + r.float()).to(p.dtype)
+        require(_same(x, want), "scale-in: flushed params differ from the "
+                "plain float32 sum")
+    moved = sum(int(torch.count_nonzero(r)) for r in leaving)
+    build.reset_launches()
+    losses = run(2)
+    launches = dict(build.LAUNCHES)
+    require(all(x == x and abs(x) < float("inf") for x in losses),
+            f"after scale-in: loss {losses}")
+    require(launches.get("significance_filter") == 22
+            and launches.get("wire_nnz") == 22
+            and launches.get("flash_attention") == 2 * 12 * 3,
+            f"after scale-in: launches {launches}")
+    log("pod-scale-in", pods="4->3", flushed_nonzero_residuals=moved,
+        flush_bit_exact=True, losses_at_3_pods=json.dumps(losses),
+        launches=json.dumps(launches))
+    del st, before, leaving
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3}
 
 
 # -- phase 4b: the LM serving paths ------------------------------------------
@@ -1072,6 +1438,62 @@ def time_kernels(dev, density: float) -> dict:
                      "bound_by": bound_by, "library_ms": None}
     out.update(time_adam(dev, flush))
     out.update(time_lm_kernels(dev, flush))
+    out.update(time_pod_kernels(dev, flush))
+    return out
+
+
+def time_pod_kernels(dev, flush) -> dict:
+    """B6 at the pod path's 75,497,472-element bf16 FF leaf (4 pods of
+    (12, 768, 2048)) at the sent density of a pod step, beside one
+    ``torch.count_nonzero`` call (its yardstick only); B1 on bf16 at the
+    same leaf against the shared (12, 768, 2048) parameters."""
+    import torch
+
+    from repro_torch.kernels import ref, significance, wire_pack
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    n = POD_FF_LEAF
+    sent = torch.randn(n, generator=gen, device=dev)
+    sent[torch.rand(n, generator=gen, device=dev) >= 0.05] = 0.0
+    sent = sent.bfloat16()
+    u = (torch.randn(4, n // 4, generator=gen, device=dev) * 1e-3).bfloat16()
+    x = (torch.randn(n // 4, generator=gen, device=dev) * 0.03).bfloat16()
+    r = (torch.randn(4, n // 4, generator=gen, device=dev) * 1e-3).bfloat16()
+    cases = {
+        "wire_nnz": (lambda: wire_pack.wire_nnz(sent),
+                     lambda: ref.wire_nnz_ref(sent),
+                     lambda: torch.count_nonzero(sent),
+                     2 * n + 4, n),  # the leaf read, one int32 written
+        "significance_filter_bf16": (
+            lambda: significance.significance_filter(u, x, r, 0.35),
+            lambda: ref.significance_ref(u, x, r, 0.35), None,
+            # u, r read, sig, res written (4 pods), x read once
+            4 * 2 * n + 2 * (n // 4), 5 * n),
+    }
+    out = {}
+    for name, (kern, plain, library, nbytes, flops) in cases.items():
+        t_cold = _time(kern, dev, 50, True, flush)
+        t_warm = _time(kern, dev, 50, False, flush)
+        p_cold = _time(plain, dev, 10, True, flush)
+        lib_ms = (_time(library, dev, 50, True, flush)
+                  if library is not None else None)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                    >= flops / FP32_FLOPS else "operations")
+        log("kernel-time", kernel=name, n=n, dtype="bfloat16", ms=t_cold,
+            ms_l2warm=t_warm, device_ms_l2warm=_device_ms(kern),
+            plain_ms=p_cold, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+            library_ms=lib_ms,
+            library_device_ms_l2warm=(_device_ms(library)
+                                      if library is not None else None),
+            library_note=("torch.count_nonzero on the same bf16 leaf"
+                          if library is not None else
+                          "no single PyTorch call computes this function"))
+        out[name] = {"ms": t_cold, "plain_ms": p_cold, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+    del sent, u, x, r
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1174,12 +1596,17 @@ def main() -> int:
         require(s["spill_store_bytes"] == 0, f"{name}: register spills")
 
     err = check_kernels(dev)
-    err["flash_attention"] = check_flash(dev)
+    check_pod_kernels(dev, err)
+    check_reintegration(dev)
+    err["flash_attention"] = max(check_flash(dev),
+                                 check_attention_grads(dev))
     err["slstm_scan"] = check_slstm(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         runs = main_path(tmp)
+        pods = pod_paths(tmp)
         invariants(tmp, runs)
         served = serve_paths(tmp)
+    pod_in_process(dev)
     card_vs_cpu(dev)
     profile_serve(dev)
     sent = [r["sent_fraction"] for r in runs["pmf_bitmap"][1]["history"]]
@@ -1192,6 +1619,7 @@ def main() -> int:
     counted = [c for _, res in runs.values()
                for c in res["kernel_launches_by_worker"].values()]
     counted += [res["kernel_launches"] for res in served.values()]
+    counted += [pods[label]["kernel_launches"] for label, _ in POD_LEGS]
     for counts in counted:
         for k, v in counts.items():
             launches[k] += v

@@ -51,11 +51,15 @@ class ISPState(NamedTuple):
 
 def significance_split(acc: torch.Tensor, x: torch.Tensor, v_t: float,
                        absolute_floor: float = 1e-8):
-    """``(sig, res, mask)`` with ``sig + res == acc`` exactly."""
-    floor = torch.tensor(absolute_floor, dtype=torch.float32, device=x.device)
+    """``(sig, res, mask)`` with ``sig + res == acc`` exactly.
+
+    Typed as the JAX package types it: the floor is a weakly typed
+    constant, so it takes ``x``'s dtype, and the float32 ``v_t`` promotes
+    the product and the compare to float32 (no-ops on float32 leaves)."""
+    floor = torch.tensor(absolute_floor, dtype=x.dtype, device=x.device)
     denom = torch.maximum(x.abs(), floor)
     vt = torch.tensor(v_t, dtype=torch.float32, device=x.device)
-    mask = acc.abs() > vt * denom
+    mask = acc.abs().float() > vt * denom.float()
     zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
     return torch.where(mask, acc, zero), torch.where(mask, zero, acc), mask
 

@@ -46,7 +46,9 @@ _F = ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)  # a host scalar block
 # C signatures: every pointer and the stream as c_void_p, never a bare int
 _ARGTYPES = {
-    "significance_filter_launch": [_P, _P, _P, _P, _P, _I64, _F, _F, _P],
+    "significance_filter_launch": [_P, _P, _P, _P, _P, _I64, _I, _I, _F, _F,
+                                   _P],
+    "wire_nnz_launch": [_P, _I, _I64, _P, _P],
     "wire_pack_launch": [_P, _I, _I, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wire_unpack_add_launch": [_P, _I, _P, _I64, _P, _I, _P, _P, _P, _P, _I, _P],
     "adam_sig_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,

@@ -12,8 +12,8 @@
 // Layouts: q and o (B, Sq, H, Dh), k and v (B, Skv, K, Dh), all contiguous,
 // float32 or bfloat16 (one type). Query head h reads KV head h / (H / K),
 // the grouping of `attention._group`: GQA is taken as it is, K/V are never
-// repeated to H. Dh in {64, 128, 256}; Sq and Skv are any length (ragged
-// tiles are masked, nothing is padded).
+// repeated to H. Dh in {32, 64, 128, 256}; Sq and Skv are any length
+// (ragged tiles are masked, nothing is padded).
 //
 // Bound: operations. At phi4-mini's prefill (B 4, S 1024, H 24, Dh 128,
 // causal, bf16) the function needs about 25.8 GFLOP (4*B*H*S^2*Dh/2), 26 us
@@ -28,9 +28,11 @@
 // pay for the mask. `wgmma` on bf16 tiles fed by TMA is the next step.
 //
 // Design: one block of 128 threads per (query tile of BQ rows, head,
-// batch row); BQ = 64 (32 at Dh 256, to keep the accumulator in
-// registers). Q, one KV tile of 64 keys and the tile's probabilities live
-// in shared memory, rows padded by one 32-bit word against bank conflicts.
+// batch row); BQ = 64, or 32 at Dh 256 (to keep the accumulator in
+// registers) and at Dh 32 (ptxas holds the 64-row float32 tile to 96
+// registers and spills; at 32 rows it needs 56). Q, one KV tile of 64
+// keys and the tile's probabilities live in shared memory, rows padded by
+// one 32-bit word against bank conflicts.
 // Thread (ty, tx) of a 16 x 8 grid owns rows ty + 16 i and score columns
 // tx + 8 j, output columns tx + 8 c; m, l and acc are float32 registers,
 // row max and row sum reduce over the 8 lanes of a row by shuffles.
@@ -264,6 +266,9 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
               int batch, int sq, int skv, int heads, int kv_heads, int causal,
               int window, int q_offset, float sm_scale, cudaStream_t st) {
   switch (dh) {
+    case 32:
+      return launch<T, 32, 32>(q, k, v, o, batch, sq, skv, heads, kv_heads,
+                               causal, window, q_offset, sm_scale, st);
     case 64:
       return launch<T, 64, 64>(q, k, v, o, batch, sq, skv, heads, kv_heads,
                                causal, window, q_offset, sm_scale, st);

@@ -1,9 +1,11 @@
-// Fused wire encode (B4) and decode/apply (B5) for Hopper (sm_90a).
+// Fused wire encode (B4), decode/apply (B5) and hit count (B6) for Hopper
+// (sm_90a).
 //
 // B4 replaces the Pallas TPU kernel `wire_pack` in
 // src/repro/kernels/wire_pack.py (`_pack_kernel` plus its cumsum-scatter
 // compaction epilogue). B5 replaces `wire_unpack_add` (`_unpack_kernel` and
-// `_add_kernel`) and its decode-only form `wire_unpack`.
+// `_add_kernel`) and its decode-only form `wire_unpack`. B6 replaces
+// `wire_nnz` (`_nnz_kernel`): the nonzero count of a flat tensor.
 //
 // Bound: bytes. Every pass is a streaming elementwise pass with a few integer
 // operations per element. The TPU bit-packs the mask on the MXU with a
@@ -244,6 +246,70 @@ __global__ void unpack_apply(const Tt* __restrict__ target,
   }
 }
 
+// ---- B6: nonzero count --------------------------------------------------
+//
+// The TPU kernel writes one int32 per (block_rows, 128) tile and sums the
+// tiles afterwards. Here the test is on the bits with the sign masked off
+// (`x != 0` of the Pallas body: -0.0 counts as zero, NaN as nonzero; int32
+// keeps every bit), on 16-byte vector loads where the base is aligned and
+// element by element for the tail. Each warp counts a load's lanes with
+// `__popc(__ballot_sync(...))`, one ballot per element of the vector; the
+// block reduces its warps in shared memory and adds its total to the
+// result with one integer atomic (exact in any order). The wrapper zeroes
+// the result first. Bound: bytes (the input read once).
+
+template <int ES>  // element size in bytes: 4 (float32, int32) or 2
+__device__ __forceinline__ int vec_hits(uint4 w, bool valid, uint32_t mask) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  int hits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    hits += __popc(__ballot_sync(kFull, valid && (words[k] & mask) != 0u));
+    if (ES == 2) {  // the upper half-word is the next element
+      hits += __popc(
+          __ballot_sync(kFull, valid && ((words[k] >> 16) & mask) != 0u));
+    }
+  }
+  return hits;
+}
+
+template <int ES>
+__global__ void nnz_kernel(const void* __restrict__ x, int64_t n, int vec,
+                           uint32_t mask, int32_t* __restrict__ out) {
+  __shared__ int warp_hits[kWarps];
+  constexpr int V = 16 / ES;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t n_vec = vec ? n / V : 0;
+  int hits = 0;  // the same in every lane of a warp
+  // bases step by whole blocks, so every lane of a warp runs every ballot
+  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < n_vec;
+       base += stride) {
+    const int64_t i = base + threadIdx.x;
+    const bool valid = i < n_vec;
+    uint4 w = valid ? reinterpret_cast<const uint4*>(x)[i]
+                    : make_uint4(0u, 0u, 0u, 0u);
+    hits += vec_hits<ES>(w, valid, mask);
+  }
+  for (int64_t base = n_vec * V + (int64_t)blockIdx.x * kThreads; base < n;
+       base += stride) {
+    const int64_t i = base + threadIdx.x;
+    uint32_t bits = 0u;
+    if (i < n) {
+      bits = ES == 4 ? static_cast<const uint32_t*>(x)[i]
+                     : static_cast<const uint16_t*>(x)[i];
+    }
+    hits += __popc(__ballot_sync(kFull, (bits & mask) != 0u));
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_hits[warp] = hits;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int k = 0; k < kWarps; ++k) total += warp_hits[k];
+    if (total) atomicAdd(out, total);
+  }
+}
+
 template <typename Tin, typename Tout>
 int pack_all(const void* x, int64_t n, void* mask_bytes, void* qdense,
              void* cvals, void* cidx, void* residual, void* counts,
@@ -328,4 +394,34 @@ extern "C" int wire_unpack_add_launch(const void* target, int target_code,
     default: return -1;
   }
 #undef UNPACK
+}
+
+// B6: out (one int32, zeroed by the caller) += the nonzeros of x[0:n];
+// code 0 float32, 1 float16, 2 bfloat16, 3 int32.
+extern "C" int wire_nnz_launch(const void* x, int code, int64_t n, void* out,
+                               void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int es = code == 1 || code == 2 ? 2 : 4;
+  uint32_t mask;
+  switch (code) {
+    case 0: mask = 0x7fffffffu; break;  // float32: the sign is not a hit
+    case 1:
+    case 2: mask = 0x7fffu; break;  // float16, bfloat16
+    case 3: mask = 0xffffffffu; break;  // int32
+    default: return -1;
+  }
+  const int vec = (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+  const int64_t per = 16 / es;
+  const int64_t work = vec ? n / per + n % per : n;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  const int64_t max_blocks = 132 * 8;  // one full wave of 256-thread blocks
+  blocks = blocks < 1 ? 1 : (blocks > max_blocks ? max_blocks : blocks);
+  if (es == 4) {
+    nnz_kernel<4><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        x, n, vec, mask, static_cast<int32_t*>(out));
+  } else {
+    nnz_kernel<2><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        x, n, vec, mask, static_cast<int32_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
 }

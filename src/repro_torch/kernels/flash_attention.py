@@ -8,6 +8,12 @@ surrounds the launch. Causal and sliding-window masks and a ``q_offset``
 (a query block against a longer KV) as in the TPU kernel; KV tiles wholly
 masked are skipped. At phi4-mini's prefill the card's operation rate
 bounds it.
+
+Under autograd the kernel is the forward of ``FlashAttention``; its
+backward recomputes the plain version (``ref.mha_ref``) and takes its
+gradients (the TPU kernel has no backward either: the JAX package trains
+through its XLA attention cores). The function is the same on both
+devices, so the CPU tests reach its backward.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from repro_torch.kernels import build, ref
 
 NAME = "flash_attention"
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 128, 256)  # the kernel's Dh; the plain version takes any
+HEAD_DIMS = (32, 64, 128, 256)  # the kernel's Dh; the plain version takes any
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,6 +55,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{NAME}: tensors on {q.device} and {t.device}")
     if q_offset < 0 or (window is not None and window <= 0):
         raise ValueError(f"{NAME}: q_offset {q_offset}, window {window}")
+    return FlashAttention.apply(q, k, v, causal, window, q_offset)
+
+
+def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
+    b, sq, h, dh = q.shape
+    skv, kh = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
@@ -69,3 +81,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             build.stream_ptr(q.device)), NAME)
         build.LAUNCHES[NAME] += 1
     return o
+
+
+class FlashAttention(torch.autograd.Function):
+    """B7 (or, for CPU tensors, its plain version) forward; the backward
+    recomputes ``ref.mha_ref`` in float32 and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return _forward(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = [i for i in range(3) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(i in need)
+                      for i, t in enumerate(saved)]
+            out = ref.mha_ref(*inputs, **ctx.mask)
+            got = torch.autograd.grad(out, [inputs[i] for i in need],
+                                      grad_out)
+        grads = [None, None, None]
+        for i, g in zip(need, got):
+            grads[i] = g
+        return (*grads, None, None, None)

@@ -2,7 +2,7 @@
 
 Each function computes what its CUDA kernel computes and is the ground
 truth the kernel is held to on the card (``chip_smoke.py``: bit for bit for
-B1-B5, at stated tolerances for the float32 sums of B7 and B8) and against
+B1-B6, at stated tolerances for the float32 sums of B7 and B8) and against
 the JAX package on the CPU (``tests/test_torch_*.py``). A wrapper takes its plain version only
 for a tensor that lies on the CPU; nothing on the CUDA path calls these.
 """
@@ -22,14 +22,19 @@ def significance_ref(
     u: torch.Tensor, x: torch.Tensor, r: torch.Tensor, v_t: float,
     floor: float = 1e-8,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """acc = r + u; split by |acc| > v_t * max(|x|, floor) -> (sig, res)."""
-    acc = r + u
+    """acc = f32(r) + f32(u); split by |acc| > v_t * max(|f32(x)|, floor)
+    -> (sig in u's dtype, res in r's dtype, each rounded to nearest even).
+
+    float32, float16 or bfloat16, as the TPU kernel's body computes it;
+    ``x`` may lack ``u``'s leading dimensions (it is broadcast)."""
+    acc = r.float() + u.float()
     f = torch.tensor(floor, dtype=torch.float32, device=x.device)
-    denom = torch.maximum(x.abs(), f)
+    denom = torch.maximum(x.float().abs(), f)
     vt = torch.tensor(v_t, dtype=torch.float32, device=x.device)
     mask = acc.abs() > vt * denom
     zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
-    return torch.where(mask, acc, zero), torch.where(mask, zero, acc)
+    return (torch.where(mask, acc, zero).to(u.dtype),
+            torch.where(mask, zero, acc).to(r.dtype))
 
 
 def packbits_le(mask: torch.Tensor) -> torch.Tensor:
@@ -71,6 +76,12 @@ def wire_pack_ref(flat: torch.Tensor, vdt: torch.dtype):
     cidx[:nnz] = idx.to(torch.int32)
     count = torch.tensor(nnz, dtype=torch.int32, device=flat.device)
     return packbits_le(mask), q, cvals, cidx, count, residual
+
+
+def wire_nnz_ref(flat: torch.Tensor) -> torch.Tensor:
+    """The count of ``flat != 0`` as a 0-d int32 tensor (``-0.0`` is zero,
+    NaN is not)."""
+    return torch.sum(flat != 0, dtype=torch.int32)
 
 
 def _gather_support(mask_bytes, cvals, n, dtype):

@@ -1,11 +1,13 @@
-"""B4 and B5: fused wire encode and decode/apply (``csrc/wire_pack.cu``).
+"""B4, B5 and B6: fused wire encode, decode/apply and hit count
+(``csrc/wire_pack.cu``).
 
-Replace the Pallas TPU kernels ``repro.kernels.wire_pack.wire_pack`` and
-``wire_unpack_add`` / ``wire_unpack``. Encode reads the filtered leaf once
-and writes the packed mask, the quantized values (dense and compacted),
-the compacted flat indices, the count and the error-feedback residual;
-decode reads the mask and the compacted values and adds them into the
-target. All passes stream, so the card's memory rate bounds them.
+Replace the Pallas TPU kernels ``repro.kernels.wire_pack.wire_pack``,
+``wire_unpack_add`` / ``wire_unpack`` and ``wire_nnz``. Encode reads the
+filtered leaf once and writes the packed mask, the quantized values (dense
+and compacted), the compacted flat indices, the count and the
+error-feedback residual; decode reads the mask and the compacted values
+and adds them into the target; the hit count reads a leaf once and writes
+one int32. All passes stream, so the card's memory rate bounds them.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version in ``kernels.ref``.
@@ -19,6 +21,7 @@ from repro_torch.kernels import build, ref
 
 PACK = "wire_pack"
 UNPACK_ADD = "wire_unpack_add"
+NNZ = "wire_nnz"
 
 CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
          torch.int32: 3}
@@ -127,3 +130,28 @@ def wire_unpack(
     if mask_bytes.device.type == "cpu":
         return ref.wire_unpack_ref(mask_bytes, cvals, n, dtype)
     return _unpack(None, mask_bytes, cvals, n, dtype, accumulate=False)
+
+
+def wire_nnz(flat: torch.Tensor) -> torch.Tensor:
+    """The nonzero count of a flat tensor as a 0-d int32 tensor on its
+    device (``-0.0`` counts as zero, NaN as nonzero), exact at any length
+    below 2**31. float32, float16, bfloat16 or int32. On a CUDA tensor this
+    launches the kernel (none for an empty tensor); on a CPU tensor it runs
+    the plain version."""
+    if flat.dim() != 1:
+        raise ValueError(f"{NNZ}: expects a 1-D tensor")
+    if flat.dtype not in CODES:
+        raise TypeError(f"{NNZ}: unsupported type {flat.dtype}")
+    if flat.numel() >= 2**31:
+        raise ValueError(f"{NNZ}: {flat.numel()} elements overflow int32")
+    if flat.device.type == "cpu":
+        return ref.wire_nnz_ref(flat)
+    build.require_cuda(flat, NNZ)
+    out = torch.zeros((), dtype=torch.int32, device=flat.device)
+    if flat.numel():
+        lib = build.load("wire_pack")
+        build.check(lib.wire_nnz_launch(
+            flat.data_ptr(), CODES[flat.dtype], flat.numel(), out.data_ptr(),
+            build.stream_ptr(flat.device)), NNZ)
+        build.LAUNCHES[NNZ] += 1
+    return out

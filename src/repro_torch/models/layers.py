@@ -1,4 +1,5 @@
-"""Layer primitives: norms, MLPs, embeddings, RoPE (``repro.models.layers``).
+"""Layer primitives: norms, MLPs, embeddings, RoPE and the chunked
+cross-entropy loss (``repro.models.layers``).
 
 Every layer exposes ``<layer>_defs(cfg, ...) -> ParamDef tree`` and
 ``<layer>_apply(cfg, params, x, ...) -> y``. Activations flow in
@@ -139,3 +140,50 @@ def rope(x: torch.Tensor, positions: torch.Tensor, base: float) -> torch.Tensor:
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
     return out.to(x.dtype)
+
+
+# ---- losses ---------------------------------------------------------------------
+
+
+def chunked_softmax_xent(cfg: ArchConfig, embed_params: PyTree,
+                         hidden: torch.Tensor, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         chunk: int = 512) -> torch.Tensor:
+    """Mean cross entropy over sequence chunks, in float32.
+
+    Each chunk computes logits (in the activation type, then float32), a
+    logsumexp and the label's logit, as the JAX package does; padded
+    vocabulary columns get a -1e30 bias so they stay out of the
+    normaliser. The JAX package rematerialises each chunk in the backward
+    pass; at the port's training shapes one chunk's logits fit, so
+    autograd keeps them.
+    """
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    dev = hidden.device
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=dev)
+    col_valid = (torch.arange(cfg.padded_vocab, device=dev)
+                 < cfg.vocab_size).float()
+    col_bias = (1.0 - col_valid) * -1e30
+    w = embed_params.get("unembed")
+    if w is None:
+        w = embed_params["tok"].T
+
+    def chunk_loss(h_c, y_c, m_c):
+        logits = (h_c @ w.to(h_c.dtype)).float() + col_bias
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, y_c.long()[..., None])[..., 0]
+        return torch.sum((lse - lab) * m_c), torch.sum(m_c)
+
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
+    if s > n_chunks * chunk:  # the remainder, one shorter chunk
+        bounds.append((n_chunks * chunk, s))
+    for lo, hi in bounds:
+        loss, n = chunk_loss(hidden[:, lo:hi], labels[:, lo:hi],
+                             mask[:, lo:hi].float())
+        tot, cnt = tot + loss, cnt + n
+    return tot / torch.maximum(cnt, torch.ones_like(cnt))

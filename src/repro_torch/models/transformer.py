@@ -16,8 +16,10 @@ cross attention, and the audio and VLM families raise
 API: ``param_defs()`` / ``init(seed, device)`` / ``cache_defs(batch,
 max_len)`` / ``init_cache(batch, max_len, device)``;
 ``prefill(params, cache, batch) -> (last_logits, cache)``;
-``decode_step(params, cache, batch, pos) -> (logits, cache)``. Caches are
-filled in place and returned.
+``decode_step(params, cache, batch, pos) -> (logits, cache)``;
+``train_loss(params, batch) -> (loss, metrics)``, differentiable by
+autograd (attention's B7 through ``kernels.flash_attention.
+FlashAttention``). Caches are filled in place and returned.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ from repro_torch.models import params as pdefs
 from repro_torch.models.attention import attn_apply, attn_defs
 from repro_torch.models.attention import cache_defs as attn_cache_defs
 from repro_torch.models.config import ArchConfig, BlockSpec, FF, Mixer
-from repro_torch.models.layers import (embed_apply, embed_defs, ff_apply,
-                                       ff_defs, norm_apply, norm_defs,
-                                       unembed_apply)
+from repro_torch.models.layers import (chunked_softmax_xent, embed_apply,
+                                       embed_defs, ff_apply, ff_defs,
+                                       norm_apply, norm_defs, unembed_apply)
 from repro_torch.models.xlstm import (mlstm_apply, mlstm_cache_defs,
                                       mlstm_defs, slstm_apply,
                                       slstm_cache_defs, slstm_defs)
@@ -177,6 +179,26 @@ class LM:
         return norm_apply(cfg, params["final_norm"], x)
 
     # ---- entry points ------------------------------------------------------------------
+
+    def train_loss(self, params: PyTree,
+                   batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training forward (no cache) and the chunked cross entropy of
+        ``batch["labels"]`` (optionally under ``batch["loss_mask"]``);
+        returns ``(loss, {"xent", "moe_aux"})``. ``moe_aux`` is 0: the port
+        trains dense models only. Training runs global attention only: the
+        sLSTM scan (B8) has no autograd form yet, and the other mixers are
+        not ported (ROADMAP.md)."""
+        for sb, _ in self.cfg.groups:
+            for spec in sb:
+                if spec.mixer is not Mixer.GLOBAL_ATTN:
+                    raise NotImplementedError(
+                        f"{self.cfg.name}: training through "
+                        f"{spec.mixer.value} is not yet ported")
+        hidden = self.forward(params, batch["tokens"])
+        loss = chunked_softmax_xent(self.cfg, params["embed"], hidden,
+                                    batch["labels"], batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"xent": loss, "moe_aux": aux}
 
     @torch.no_grad()
     def prefill(self, params: PyTree, cache: PyTree,

@@ -5,6 +5,8 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     OptState,
     adam,
     apply_updates,
+    clip_by_global_norm,
+    global_norm,
     make,
     nesterov,
     sgd,

@@ -2,8 +2,21 @@
 
 Same ``OptState(step, mu, nu)`` layout as the JAX package, so checkpoints
 key on ``opt/step`` and ``opt/mu/...`` in both. ``step`` is a 0-d int32
-tensor on the parameters' device; the math is float32 tensor arithmetic in
-the JAX package's order of operations.
+tensor on the parameters' device. The math follows the JAX package's order
+of operations and its type promotion, so a bfloat16 leaf rounds where the
+JAX update rounds it:
+
+* a Python constant in JAX is weakly typed and takes the leaf's dtype
+  (``b1 * m`` multiplies by ``bf16(0.9)``), so here it is a 0-d tensor of
+  the leaf's dtype (PyTorch would keep a Python float at float32);
+* a float32 0-d array in JAX (``eta``, ``bc1``) promotes a bfloat16 leaf to
+  float32, so here the leaf is cast up first (PyTorch would round the
+  0-d tensor to the leaf's dtype instead);
+* the update is cast back to the leaf's dtype at the end.
+
+Device constants are made with ``torch.full`` (a fill on the card, no copy
+from the host, so no wait for the card). On float32 leaves every one of
+these is a no-op.
 """
 
 from __future__ import annotations
@@ -45,9 +58,21 @@ def _step0(params: PyTree) -> torch.Tensor:
     return torch.ones((), dtype=torch.int32, device=_device_of(params))
 
 
+def _f32(value: float, device) -> torch.Tensor:
+    """A 0-d float32 tensor on ``device``."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def _weak(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant as JAX's weak typing applies it to ``like``: a 0-d
+    tensor of ``like``'s dtype (on the CPU, where PyTorch takes it as a
+    scalar for any device; multiplication only, never a divisor)."""
+    return torch.tensor(value, dtype=like.dtype)
+
+
 def _lr_at(lr: float, step: torch.Tensor, decay: bool) -> torch.Tensor:
     """eta_t = eta / sqrt(t) with decay, else eta (float32)."""
-    base = torch.tensor(lr, dtype=torch.float32, device=step.device)
+    base = _f32(lr, step.device)
     if not decay:
         return base
     t = torch.clamp_min(step.to(torch.float32), 1.0)
@@ -63,7 +88,8 @@ def sgd(lr: float, lr_decay: bool = False) -> Optimizer:
 
     def update(grads, state, params):
         eta = _lr_at(lr, state.step, lr_decay)
-        updates = tree_lib.tree_map(lambda g: -eta * g, grads)
+        updates = tree_lib.tree_map(
+            lambda g: (-eta * g.float()).to(g.dtype), grads)
         return updates, OptState(state.step + 1, state.mu, state.nu)
 
     return Optimizer("sgd", init, update)
@@ -79,9 +105,11 @@ def nesterov(lr: float, momentum: float = 0.9,
 
     def update(grads, state, params):
         eta = _lr_at(lr, state.step, lr_decay)
-        mu = tree_lib.tree_map(lambda m, g: momentum * m + g, state.mu, grads)
+        mu = tree_lib.tree_map(lambda m, g: _weak(momentum, m) * m + g,
+                               state.mu, grads)
         updates = tree_lib.tree_map(
-            lambda g, m: -eta * (g + momentum * m), grads, mu)
+            lambda g, m: (-eta * (g + _weak(momentum, m) * m).float()).to(
+                g.dtype), grads, mu)
         return updates, OptState(state.step + 1, mu, state.nu)
 
     return Optimizer("nesterov", init, update)
@@ -98,21 +126,23 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     def update(grads, state, params):
         t = state.step.to(torch.float32)
         eta = _lr_at(lr, state.step, lr_decay)
-        mu = tree_lib.tree_map(lambda m, g: b1 * m + (1 - b1) * g,
-                               state.mu, grads)
-        nu = tree_lib.tree_map(lambda v, g: b2 * v + (1 - b2) * (g * g),
-                               state.nu, grads)
-        one = torch.ones((), dtype=torch.float32, device=t.device)
-        bc1 = one - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                           device=t.device), t)
-        bc2 = one - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                           device=t.device), t)
+        mu = tree_lib.tree_map(
+            lambda m, g: _weak(b1, m) * m + _weak(1 - b1, g) * g,
+            state.mu, grads)
+        nu = tree_lib.tree_map(
+            lambda v, g: _weak(b2, v) * v + _weak(1 - b2, g) * (g * g),
+            state.nu, grads)
+        one = _f32(1.0, t.device)
+        bc1 = one - torch.pow(_f32(b1, t.device), t)
+        bc2 = one - torch.pow(_f32(b2, t.device), t)
 
         def leaf(m, v, p):
-            u = -eta * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            # float32 from here on, as JAX promotes m / bc1
+            u = -eta * (m.float() / bc1) / (torch.sqrt(v.float() / bc2)
+                                            + eps)
             if weight_decay:
-                u = u - eta * weight_decay * p
-            return u
+                u = u - eta * weight_decay * p.float()
+            return u.to(p.dtype)
 
         updates = tree_lib.tree_map(leaf, mu, nu, params)
         return updates, OptState(state.step + 1, mu, nu)
@@ -137,4 +167,31 @@ def make(name: str, lr: float, **kwargs) -> Optimizer:
 
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
     """x_t = x_{t-1} + u_t."""
-    return tree_lib.tree_map(lambda p, u: p + u, params, updates)
+    return tree_lib.tree_map(lambda p, u: (p + u).to(p.dtype), params,
+                             updates)
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32; the leaves'
+    sums are added in leaf order (a left fold, as ``jax.tree.reduce``).
+    The root is taken in float64 and rounded, which is the correctly
+    rounded float32 root (PyTorch's float32 sqrt on the CPU is not)."""
+    total = None
+    for g in tree_lib.leaves(tree):
+        sq = torch.sum(torch.square(g.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total.double()).float()
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
+    """Scale every leaf by ``min(1, max_norm / max(norm, 1e-12))``.
+
+    The scale is a float32 tensor / tensor division (PyTorch divides a
+    Python scalar by a tensor through a reciprocal, which rounds
+    differently), and each leaf is scaled in float32 and cast back, as
+    JAX promotes ``g * scale``."""
+    norm = global_norm(grads)
+    dev = norm.device
+    scale = torch.minimum(_f32(1.0, dev), _f32(max_norm, dev) / torch.maximum(
+        norm, _f32(1e-12, dev)))
+    return tree_lib.tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)

@@ -283,7 +283,10 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
         return peers_sum, flushes
 
     def apply_flushes(params, flushes, deliver_step: int):
-        pool_before = float(members.p_active(deliver_step - 1))
+        # a 0-d float32 divisor on the card, as the JAX worker divides by
+        # jnp.asarray(pool_before, jnp.float32)
+        pool_before = torch.full((), float(members.p_active(
+            deliver_step - 1)), dtype=torch.float32, device=dev)
         for _q, flushed in sorted(flushes, key=lambda kv: kv[0]):
             params = reintegrate_into(params, flushed, pool_before)
         return params
