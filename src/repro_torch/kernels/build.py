@@ -51,9 +51,8 @@ _ARGTYPES = {
     "wire_nnz_launch": [_P, _I, _I64, _P, _P],
     "wire_pack_launch": [_P, _I, _I, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wire_unpack_add_launch": [_P, _I, _P, _I64, _P, _I, _P, _P, _P, _P, _I, _P],
-    "adam_sig_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                               _FP, _F, _P],
-    "adam_update_launch": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _FP, _P],
+    "adam_sig_update_launch": [_P] * 10 + [_I64, _I, _I, _I, _FP, _F, _P],
+    "adam_update_launch": [_P] * 7 + [_I64, _I, _I, _FP, _P],
     "flash_attention_launch": [_P, _P, _P, _P] + [_I] * 10 + [_F, _P],
     "slstm_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
 }

@@ -5,8 +5,11 @@ Replace the Pallas TPU kernels ``repro.kernels.fused_adam.adam_sig_update``
 corrections, ``v_t`` or the weight decay, the update scale) is computed once
 on the host in float32 (``ref.adam_scalars``) and handed to the kernel or,
 for a CPU tensor, to the plain version, so the two differ only in their own
-arithmetic. Each is one elementwise pass; the card's memory rate bounds
-both (B2 40 B per element, B3 28 B at float32).
+arithmetic. Each is one elementwise pass in float32 over float32 or
+bfloat16 storage (p and g of one type, the moments of one type, B2's
+residual its own), each output rounded once to its type, as the TPU
+kernels do; the card's memory rate bounds both (B2 40 B per element, B3
+28 B at float32; 20 B and 14 B all in bfloat16).
 """
 
 from __future__ import annotations
@@ -17,29 +20,36 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.wire_pack import CODES
 
 SIG_NAME = "adam_sig_update"
 NAME = "adam_update"
-P_DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _block(s: ref.AdamScalars):
     return (ctypes.c_float * len(s))(*s)
 
 
-def _check(name: str, tensors, dtypes) -> None:
-    t0 = tensors[0]
-    for t, dts in zip(tensors, dtypes):
-        if t.shape != t0.shape:
-            raise ValueError(f"{name}: shape mismatch {t0.shape} {t.shape}")
-        if t.dtype not in dts:
-            raise TypeError(f"{name}: got {t.dtype}, takes {dts}")
-        if t.device != t0.device:
-            raise ValueError(f"{name}: tensors on {t0.device} and "
-                             f"{t.device}")
+def _check(name: str, groups) -> None:
+    """``groups``: tuples of tensors that must share one of ``DTYPES``; all
+    tensors share one shape and one device."""
+    t0 = groups[0][0]
+    for group in groups:
+        for t in group:
+            if t.shape != t0.shape:
+                raise ValueError(f"{name}: shape mismatch {t0.shape} "
+                                 f"{t.shape}")
+            if t.dtype != group[0].dtype or t.dtype not in DTYPES:
+                raise TypeError(f"{name}: got {[x.dtype for x in group]}, "
+                                f"takes one of {DTYPES} for them")
+            if t.device != t0.device:
+                raise ValueError(f"{name}: tensors on {t0.device} and "
+                                 f"{t.device}")
     if t0.device.type != "cpu":
-        for t in tensors:
-            build.require_cuda(t, name)
+        for group in groups:
+            for t in group:
+                build.require_cuda(t, name)
 
 
 def adam_update(
@@ -47,16 +57,14 @@ def adam_update(
     lr: float, step: int, *, b1: float = 0.9, b2: float = 0.999,
     eps: float = 1e-8, weight_decay: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused Adam step on one tensor: ``(new_p, new_mu, new_nu)``.
+    """Fused Adam step on one tensor: ``(new_p, new_mu, new_nu)``, each in
+    its input's type.
 
-    ``p`` and ``g`` are float32 or bfloat16 (one type), the moments
-    float32. On a CUDA tensor this launches the kernel; on a CPU tensor it
-    runs the plain version.
+    ``p`` and ``g`` share one of ``DTYPES``, ``mu`` and ``nu`` one of
+    ``DTYPES``. On a CUDA tensor this launches the kernel; on a CPU tensor
+    it runs the plain version.
     """
-    if p.dtype not in P_DTYPES:
-        raise TypeError(f"{NAME}: p must be one of {P_DTYPES}, got {p.dtype}")
-    f32 = (torch.float32,)
-    _check(NAME, (p, g, mu, nu), ((p.dtype,), (p.dtype,), f32, f32))
+    _check(NAME, ((p, g), (mu, nu)))
     s = ref.adam_scalars(lr, b1, b2, eps, int(step), last=weight_decay)
     if p.device.type == "cpu":
         return ref.adam_ref(p, g, mu, nu, s)
@@ -67,7 +75,7 @@ def adam_update(
         build.check(lib.adam_update_launch(
             p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             p_out.data_ptr(), mu_out.data_ptr(), nu_out.data_ptr(), n,
-            int(p.dtype == torch.bfloat16), _block(s),
+            CODES[p.dtype], CODES[mu.dtype], _block(s),
             build.stream_ptr(p.device)), NAME)
         build.LAUNCHES[NAME] += 1
     return p_out, mu_out, nu_out
@@ -83,23 +91,25 @@ def adam_sig_update(
     ``(sig, new_mu, new_nu, new_residual, u)``.
 
     ``u`` is the Adam update times ``scale`` (the worker's ``1/P_active``);
-    ``sig + new_residual == r + u``. float32 tensors of one shape. On a
-    CUDA tensor this launches the kernel; on a CPU tensor it runs the
-    plain version.
+    in float32 ``sig + new_residual == r + u``. Tensors of one shape: ``p``
+    and ``g`` share one of ``DTYPES``, ``mu`` and ``nu`` one, ``r`` any;
+    ``sig`` and ``u`` come back in ``p``'s type, the moments in theirs and
+    the residual in ``r``'s. On a CUDA tensor this launches the kernel; on
+    a CPU tensor it runs the plain version.
     """
-    f32 = (torch.float32,)
-    _check(SIG_NAME, (p, g, mu, nu, r), (f32,) * 5)
+    _check(SIG_NAME, ((p, g), (mu, nu), (r,)))
     s = ref.adam_scalars(lr, b1, b2, eps, int(step), last=v_t, scale=scale)
     fl = float(np.float32(floor))
     if p.device.type == "cpu":
         return ref.adam_sig_ref(p, g, mu, nu, r, s, fl)
-    outs = tuple(torch.empty_like(p) for _ in range(5))
+    outs = tuple(torch.empty_like(t) for t in (p, mu, nu, r, p))
     n = p.numel()
     if n:
         lib = build.load("fused_adam")
         build.check(lib.adam_sig_update_launch(
             p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-            r.data_ptr(), *(o.data_ptr() for o in outs), n, _block(s), fl,
+            r.data_ptr(), *(o.data_ptr() for o in outs), n, CODES[p.dtype],
+            CODES[mu.dtype], CODES[r.dtype], _block(s), fl,
             build.stream_ptr(p.device)), SIG_NAME)
         build.LAUNCHES[SIG_NAME] += 1
     return outs

@@ -3,10 +3,12 @@
 ``significance_tree`` is the ISP filter of the worker's Nesterov and SGD
 steps: B1 on every leaf. ``flash_attention`` is B7 on (B, S, H, Dh)
 tensors. ``adam_isp_tree`` is the worker's whole Adam + ISP
-step: B2 on every leaf. ``fused_adam`` and ``fused_adam_sig`` apply B3 and
-B2 leaf by leaf over trees of one structure (a single tensor is a tree of
-one leaf). Each runs the kernel for CUDA leaves and its plain version for
-CPU leaves.
+step: B2 on every leaf, and with scale 1 the in-process trainer's
+``isp`` Adam step; ``adam_tree`` is its ``bsp`` Adam step: B3 on every
+leaf.
+``fused_adam`` and ``fused_adam_sig`` apply B3 and B2 leaf by leaf over
+trees of one structure (a single tensor is a tree of one leaf). Each runs
+the kernel for CUDA leaves and its plain version for CPU leaves.
 """
 
 from __future__ import annotations
@@ -72,27 +74,54 @@ def fused_adam_sig(p, g, mu, nu, r, lr, step, v_t, b1: float = 0.9,
     return _unzip(p, out, 5)
 
 
+def _adam_lr(hparams: dict, step: int) -> float:
+    """``optim.adam``'s eta_t in float32: lr, over sqrt(t) with decay."""
+    lr = np.float32(hparams["lr"])
+    if hparams.get("lr_decay"):
+        lr = lr / np.sqrt(np.maximum(np.float32(step), np.float32(1.0)))
+    return float(lr)
+
+
+def adam_tree(grads: PyTree, state, params: PyTree, hparams: dict,
+              step: int):
+    """The in-process trainer's BSP Adam step through B3: ``optim.adam``'s
+    update (``hparams`` are its settings) applied to every leaf.
+
+    Returns ``(new_params, new_state)``: the same ``OptState`` layout and
+    step increment as ``optim.adam``, moments in their own dtype (a
+    bfloat16 model keeps bfloat16 moments, as in the JAX package), so
+    checkpoints cross. ``step`` is the host value of ``state.step``, so
+    nothing here waits for the card.
+    """
+    from repro_torch.optim import OptState
+
+    p, mu, nu = fused_adam(params, grads, state.mu, state.nu,
+                           _adam_lr(hparams, step), step, b1=hparams["b1"],
+                           b2=hparams["b2"], eps=hparams["eps"],
+                           weight_decay=hparams.get("weight_decay", 0.0))
+    return p, OptState(state.step + 1, mu, nu)
+
+
 def adam_isp_tree(grads: PyTree, state, params: PyTree, residual: PyTree,
-                  hparams: dict, v_t: float, scale: float,
+                  hparams: dict, step: int, v_t: float, scale: float,
                   floor: float = 1e-8):
-    """The worker's Adam + ISP step through B2: ``optim.adam``'s update
-    (``hparams`` are its settings) scaled by ``scale`` (``1/P_active``),
-    accumulated into ``residual`` and split at ``v_t``.
+    """The Adam + ISP step through B2: ``optim.adam``'s update (``hparams``
+    are its settings) scaled by ``scale`` (the FaaS worker's
+    ``1/P_active``; 1 in the in-process ``isp`` mode), accumulated into
+    ``residual`` and split at ``v_t``.
 
     Returns ``(u, sig, new_residual, new_state)``: the same ``OptState``
     layout and step increment as ``optim.adam``, so checkpoints cross
-    between the fused and the unfused path and the JAX package.
+    between the fused and the unfused path and the JAX package. ``step``
+    is the host value of ``state.step``: the caller holds it, so nothing
+    here waits for the card.
     """
     from repro_torch.optim import OptState
 
     if hparams.get("weight_decay"):
         raise ValueError("the fused Adam + ISP step has no weight decay")
-    step = int(state.step)
-    lr = np.float32(hparams["lr"])
-    if hparams.get("lr_decay"):
-        lr = lr / np.sqrt(np.maximum(np.float32(step), np.float32(1.0)))
     sig, mu, nu, res, u = fused_adam_sig(
-        params, grads, state.mu, state.nu, residual, float(lr), step, v_t,
-        b1=hparams["b1"], b2=hparams["b2"], eps=hparams["eps"], floor=floor,
-        scale=float(np.float32(scale)))
+        params, grads, state.mu, state.nu, residual, _adam_lr(hparams, step),
+        step, v_t, b1=hparams["b1"], b2=hparams["b2"], eps=hparams["eps"],
+        floor=floor, scale=float(np.float32(scale)))
     return u, sig, res, OptState(state.step + 1, mu, nu)

@@ -176,7 +176,8 @@ def _adam_core(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
 def adam_ref(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
              nu: torch.Tensor, s: AdamScalars):
     """One Adam update with decoupled weight decay ``s.last``; returns
-    ``(new_p, new_mu, new_nu)`` (``repro.kernels.ref.adam_ref``)."""
+    ``(new_p, new_mu, new_nu)`` (``repro.kernels.ref.adam_ref``), computed
+    in float32 and each rounded to its input's dtype."""
     mu2, nu2, upd = _adam_core(g, mu, nu, s)
     pf = p.to(torch.float32)
     if s.last:
@@ -191,11 +192,14 @@ def adam_sig_ref(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     """Adam update -> ``u * s.scale`` -> residual accumulate -> split at
     ``v_t = s.last``; returns ``(sig, new_mu, new_nu, new_residual, u)``
     (``repro.kernels.ref.adam_sig_ref`` plus the scaled update ``u``,
-    which the worker applies locally)."""
+    which the worker applies locally). Computed in float32; ``sig`` and
+    ``u`` are rounded to ``p``'s dtype, the moments to theirs and the
+    residual to ``r``'s, as the TPU kernel writes each output."""
     mu2, nu2, upd = _adam_core(g, mu, nu, s)
     u = upd * s.scale
     sig, res = significance_ref(u, p, r, s.last, floor)
-    return sig, mu2, nu2, res, u
+    return (sig.to(p.dtype), mu2.to(mu.dtype), nu2.to(nu.dtype), res,
+            u.to(p.dtype))
 
 
 # -- flash attention (B7) ------------------------------------------------------

@@ -3,19 +3,30 @@
 Two runtimes, as in the JAX package:
 
 * ``inproc`` (the default): the in-process trainer of an LM from the zoo
-  with its exchange mode. Ported: ``isp-pod``, per-pod divergent
-  optimizer state and residuals over a leading pod dimension, one
-  error-feedback ISP exchange per step (``dist.compression``) and the
-  auto-tuner's pod scale-in (``dist.elastic``). ``bsp`` and ``isp`` are
-  registered and raise ``NotImplementedError`` (ROADMAP.md A1). On the
-  card every step runs B7 in each attention forward, B1 on every leaf's
-  split and B6 on every leaf's hit count: JAX's ``fused=True`` exchange.
+  with its exchange mode, every mode of the JAX package:
 
+  - ``bsp`` (the default): one gradient over the global batch, clipped,
+    and the optimizer's update applied. Under Adam the update is B3 on
+    every leaf.
+  - ``isp``: the same gradient, the update accumulated into one residual
+    and only its significant part applied (the error-feedback filter).
+    Under Adam update and filter are B2 on every leaf; under SGD and
+    Nesterov the filter is B1. On the card B6 counts each leaf's hits.
+  - ``isp-pod``: per-pod divergent optimizer state and residuals over a
+    leading pod dimension, one error-feedback ISP exchange per step
+    (``dist.compression``) and the auto-tuner's pod scale-in
+    (``dist.elastic``); on the card B1 on every leaf's split and B6 on
+    every leaf's hit count: JAX's ``fused=True`` exchange.
+
+  Every step runs B7 in each attention forward on the card.
+
+      python -m repro_torch.launch.train --arch lm-100m --mode isp \\
+          --workers 4 --per-worker-batch 4 --seq 256 --steps 10
       python -m repro_torch.launch.train --arch lm-100m --mode isp-pod \\
           --workers 4 --per-worker-batch 4 --seq 256 --steps 10 \\
           --scheme bitmap
-      python -m repro_torch.launch.train --arch lm-8m --mode isp-pod \\
-          --steps 4 --workers 2 --seq 32 --device cpu
+      python -m repro_torch.launch.train --arch lm-8m --steps 4 \\
+          --workers 2 --seq 32 --device cpu
 
 * ``faas``: one MLLess job on the multi-process FaaS runtime
   (``repro_torch.runtime``).
@@ -60,11 +71,12 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.dist import elastic as dist_elastic
 from repro_torch.dist.compression import (CompressionConfig, apply_combined,
                                           isp_compressed_step)
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.wire_pack import wire_nnz
 from repro_torch.models.config import (ArchConfig, BlockSpec, FF, Mixer,
                                        uniform_groups)
 from repro_torch.models.transformer import LM
-from repro_torch.optim import clip_by_global_norm
+from repro_torch.optim import apply_updates, clip_by_global_norm
 
 PyTree = Any
 
@@ -106,6 +118,83 @@ class TrainState:
     pool: int  # current worker count (elastic weak scaling)
 
 
+def _value_and_grad(lm: LM, params: PyTree, batch: dict):
+    """``(loss, grads)`` of ``lm.train_loss`` at ``params`` (the JAX
+    package's ``jax.value_and_grad``); the loss comes back detached."""
+    leaves = [x.detach().requires_grad_() for x in tree_lib.leaves(params)]
+    loss, _ = lm.train_loss(tree_lib.unflatten(params, leaves), batch)
+    grads = tree_lib.unflatten(params,
+                               list(torch.autograd.grad(loss, leaves)))
+    return loss.detach(), grads
+
+
+def _sent_fraction(sig: PyTree) -> torch.Tensor:
+    """The share of entries with ``sig != 0`` as a 0-d float32 tensor
+    (``core.isp.communicated_fraction`` of the JAX step's masks): B6
+    counts each leaf's hits on the card (its plain version on the CPU), so
+    nothing here waits for the card."""
+    leaves = tree_lib.leaves(sig)
+    dev = leaves[0].device
+    hits = torch.zeros((), dtype=torch.float32, device=dev)
+    total = 0
+    for x in leaves:
+        if x.numel():
+            hits = hits + wire_nnz(x.reshape(-1)).float()
+        total += x.numel()
+    return hits / torch.full((), max(float(total), 1.0), dtype=torch.float32,
+                             device=dev)
+
+
+def make_step(lm: LM, optimizer, isp: ISPConfig | None, clip: float = 1.0):
+    """One train step of the ``bsp`` (``isp`` None) or ``isp`` mode (the
+    JAX package's ``make_step``).
+
+    The gradient of ``lm.train_loss`` over the whole batch, clipped by its
+    global norm; then the optimizer. BSP applies its update. ISP
+    accumulates it into the residual, splits the sum at ``v_t`` and applies
+    only the significant part (the residual stays local). Under Adam both
+    go through the fused kernels (``ops.adam_tree``: B3; ``ops.
+    adam_isp_tree``: B2 with the split); under SGD and Nesterov through
+    ``optimizer.update`` and, for ISP, B1 (``ops.significance_tree``).
+
+    ``step_fn(params, opt_state, residual, batch, opt_step)`` takes
+    ``opt_step``, the host value of ``opt_state.step`` before the update,
+    so the threshold and the kernels' scalars need no read from the card:
+    the JAX step takes ``v_t`` at the updated step, ``opt_step + 1``.
+    Returns ``(params, opt_state, residual, loss, sent_fraction)``, the
+    last two as 0-d device tensors (1.0 under BSP).
+    """
+    fused = optimizer.name == "adam"
+
+    def step_fn(params, opt_state, residual, batch, opt_step: int):
+        loss, grads = _value_and_grad(lm, params, batch)
+        if clip:
+            grads = clip_by_global_norm(grads, clip)
+        if isp is None:
+            if fused:
+                params, opt_state = ops.adam_tree(
+                    grads, opt_state, params, optimizer.hparams, opt_step)
+            else:
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      params)
+                params = apply_updates(params, updates)
+            sent = torch.ones((), dtype=torch.float32, device=loss.device)
+            return params, opt_state, residual, loss, sent
+        v_t = isp.threshold(opt_step + 1)
+        if fused:
+            _, sig, residual, opt_state = ops.adam_isp_tree(
+                grads, opt_state, params, residual, optimizer.hparams,
+                opt_step, v_t, 1.0, isp.absolute_floor)
+        else:
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            sig, residual = ops.significance_tree(updates, params, residual,
+                                                  v_t, isp.absolute_floor)
+        params = apply_updates(params, sig)
+        return params, opt_state, residual, loss, _sent_fraction(sig)
+
+    return step_fn
+
+
 def lift_pod(tree: PyTree, n_pods: int) -> PyTree:
     """Stack a shared tree into per-pod state: every leaf gains a leading
     (n_pods,) dim (the divergent moments and residuals of the pod path)."""
@@ -145,19 +234,15 @@ def make_pod_step(lm: LM, optimizer, isp: ISPConfig, comp: CompressionConfig,
                   for k, v in batch.items()}
         updates, states, losses = [], [], []
         for p in range(n_pods):
-            leaves = [x.detach().requires_grad_() for x in
-                      tree_lib.leaves(params)]
-            loss, _ = lm.train_loss(tree_lib.unflatten(params, leaves),
-                                    {k: v[p] for k, v in shards.items()})
-            grads = tree_lib.unflatten(
-                params, list(torch.autograd.grad(loss, leaves)))
+            loss, grads = _value_and_grad(
+                lm, params, {k: v[p] for k, v in shards.items()})
             if clip:
                 grads = clip_by_global_norm(grads, clip)
             state_p = tree_lib.tree_map(lambda x: x[p], opt_pod)
             u, state_p = optimizer.update(grads, state_p, params)
             updates.append(u)
             states.append(state_p)
-            losses.append(loss.detach())
+            losses.append(loss)
         opt_pod = _stack(states)
         v_t = isp.threshold(opt_step + 1)
         combined, res_pod, stats = isp_compressed_step(
@@ -182,8 +267,7 @@ def make_pod_step(lm: LM, optimizer, isp: ISPConfig, comp: CompressionConfig,
 
 @dataclasses.dataclass(frozen=True)
 class TrainMode:
-    """One in-process exchange mode; a mode whose ``build_step`` is None is
-    registered by name and not yet ported."""
+    """One in-process exchange mode."""
 
     name: str
     pod: bool  # per-pod (lifted) optimizer/residual state
@@ -203,6 +287,20 @@ def _device_count(device: torch.device) -> int:
     """The devices a restore could spread over: the CUDA cards, or the one
     CPU (``jax.device_count()`` on a CPU backend)."""
     return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _scale_in_flat(args, st: TrainState, plan, isp) -> TrainState:
+    """bsp/isp scale-in: flush the ISP residual into the params (the
+    paper's leaving-worker model averaging, error-feedback form: no update
+    mass is lost) with ``apply_updates`` in each leaf's dtype, zero it,
+    checkpoint, shrink the pool."""
+    if isp is not None:
+        st.params = apply_updates(st.params, st.residual)
+        st.residual = tree_lib.tree_map(torch.zeros_like, st.residual)
+    if args.checkpoint_dir:
+        save_checkpoint(args.checkpoint_dir, st)
+    st.pool -= 1
+    return st
 
 
 def _scale_in_pod(args, st: TrainState, plan, isp) -> TrainState:
@@ -229,9 +327,16 @@ def _scale_in_pod(args, st: TrainState, plan, isp) -> TrainState:
     return st
 
 
-for _name in ("bsp", "isp"):  # ROADMAP.md A1
-    register_mode(TrainMode(name=_name, pod=False, build_step=None,
-                            scale_in=None))
+register_mode(TrainMode(
+    name="bsp", pod=False,
+    build_step=lambda lm, opt, isp, comp, pool: make_step(lm, opt, None),
+    scale_in=_scale_in_flat,
+))
+register_mode(TrainMode(
+    name="isp", pod=False,
+    build_step=lambda lm, opt, isp, comp, pool: make_step(lm, opt, isp),
+    scale_in=_scale_in_flat,
+))
 register_mode(TrainMode(
     name="isp-pod", pod=True,
     build_step=lambda lm, opt, isp, comp, pool: make_pod_step(
@@ -267,9 +372,6 @@ def train(args) -> dict:
     the JAX driver's result keys plus ``device``, ``kernel_launches`` (the
     launches of this run) and, on the card, ``peak_memory_bytes``."""
     mode = MODES[args.mode]
-    if mode.build_step is None:
-        raise NotImplementedError(
-            f"--mode {args.mode}: not yet ported (ROADMAP.md A1)")
     dev = device_lib.resolve(getattr(args, "device", None))
     cfg = resolve_arch(args.arch, args.smoke)
     lm = LM(cfg)
@@ -461,7 +563,7 @@ def main() -> None:
     ap.add_argument("--per-worker-batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--mode", choices=tuple(sorted(MODES)), default="bsp",
-                    help="inproc exchange mode (bsp, isp: not yet ported)")
+                    help="inproc exchange mode (see above)")
     ap.add_argument("--isp-v", type=float, default=0.7)
     ap.add_argument("--scheme", choices=("dense", "topk", "bitmap"),
                     default="dense",

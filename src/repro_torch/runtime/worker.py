@@ -191,7 +191,8 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
         if fused_adam:
             u, sig, res, opt_state = adam_isp_tree(
                 grads, opt_state, params, residual, optimizer.hparams,
-                isp.threshold(t), inv_p, isp.absolute_floor)
+                int(opt_state.step), isp.threshold(t), inv_p,
+                isp.absolute_floor)
         else:
             updates, opt_state = optimizer.update(grads, opt_state, params)
             u = tree_lib.tree_map(lambda a: a * inv_p, updates)

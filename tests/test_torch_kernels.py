@@ -29,7 +29,8 @@ from repro.wire import codec as jcodec
 
 from repro_torch import optim
 from repro_torch.kernels import build, fused_adam, ref, significance, wire_pack
-from repro_torch.kernels.ops import (adam_isp_tree, fused_adam as fused_adam_tree,
+from repro_torch.kernels.ops import (adam_isp_tree, adam_tree,
+                                     fused_adam as fused_adam_tree,
                                      fused_adam_sig, significance_tree)
 
 SIZES = (1, 7, 129, 1025, 4097)
@@ -280,6 +281,85 @@ def test_adam_sig_plain_matches_pallas_interpret(shape, v_t, step):
     assert torch.equal(sig != 0, (sig != 0) & (res == 0))
 
 
+_DT = {"float32": (torch.float32, jnp.float32),
+       "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+@pytest.mark.parametrize("shape", ((), (1,), (13,), (100,), (256, 128),
+                                   (33, 5)))
+@pytest.mark.parametrize("pdtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("step", (1, 100))
+def test_adam_update_bf16_moments_plain_matches_pallas_interpret(
+        shape, pdtype, step):
+    """B3 with bfloat16 moments (a bfloat16 model's ``zeros_like(params)``
+    state), p and g in float32 or bfloat16: each output in its input's
+    type, as the TPU kernel writes it, within the bfloat16 tolerance 2e-2
+    (``1 - b2`` is rounded from double here, in float32 there, so the two
+    are not bit-equal)."""
+    p, g, mu, nu, _ = _adam_inputs(shape, seed=20 + len(shape) + step)
+    tdt, jdt = _DT[pdtype]
+    got = fused_adam.adam_update(
+        torch.from_numpy(p).to(tdt), torch.from_numpy(g).to(tdt),
+        torch.from_numpy(mu).bfloat16(), torch.from_numpy(nu).bfloat16(),
+        1e-3, step)
+    want = jfa.adam_update(jnp.asarray(p, jdt), jnp.asarray(g, jdt),
+                           jnp.asarray(mu, jnp.bfloat16),
+                           jnp.asarray(nu, jnp.bfloat16), 1e-3, step,
+                           interpret=True)
+    assert [t.dtype for t in got] == [tdt, torch.bfloat16, torch.bfloat16]
+    assert [w.dtype for w in want] == [jdt, jnp.bfloat16, jnp.bfloat16]
+    for a, b in zip(got, want):
+        assert a.shape == shape
+        _close(a, b, 2e-2)
+
+
+@pytest.mark.parametrize("shape", ((), (1,), (13,), (500,), (64, 200)))
+@pytest.mark.parametrize("v_t", (0.0, 0.7))
+@pytest.mark.parametrize("step", (1, 5, 100))
+def test_adam_sig_bf16_plain_matches_pallas_interpret(shape, v_t, step):
+    """B2 on bfloat16 leaves (p, g, the moments and the residual): every
+    output bfloat16, within the bfloat16 tolerance 2e-2 of the Pallas
+    kernel; an entry is sent or kept, never both."""
+    p, g, mu, nu, r = _adam_inputs(shape, seed=30 + step)
+    t = [torch.from_numpy(a).bfloat16() for a in (p, g, mu, nu, r)]
+    sig, mu2, nu2, res, u = fused_adam.adam_sig_update(*t, 1e-3, step, v_t)
+    want = jfa.adam_sig_update(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (p, g, mu, nu, r)), 1e-3,
+        step, v_t, interpret=True)
+    for a, b in zip((sig, mu2, nu2, res), want):
+        assert a.shape == shape and a.dtype == torch.bfloat16
+        assert b.dtype == jnp.bfloat16
+        _close(a, b, 2e-2)
+    assert u.dtype == torch.bfloat16
+    assert not bool(((sig != 0) & (res != 0)).any())
+
+
+@pytest.mark.parametrize("pdtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("mdtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("rdtype", ("float32", "bfloat16"))
+def test_adam_sig_dtype_combinations_match_pallas_interpret(pdtype, mdtype,
+                                                            rdtype):
+    """B2 takes p and g in one type, the moments in one, the residual in
+    its own: ``sig`` and ``u`` come back in p's type, the moments in
+    theirs, the residual in r's (the TPU kernel's out shapes); values
+    within 1e-5 when all are float32, else 2e-2."""
+    p, g, mu, nu, r = _adam_inputs((500,), seed=40)
+    dts = [_DT[pdtype], _DT[pdtype], _DT[mdtype], _DT[mdtype], _DT[rdtype]]
+    got = fused_adam.adam_sig_update(
+        *(torch.from_numpy(a).to(d[0]) for a, d in zip((p, g, mu, nu, r),
+                                                       dts)), 1e-3, 5, 0.7)
+    want = jfa.adam_sig_update(
+        *(jnp.asarray(a, d[1]) for a, d in zip((p, g, mu, nu, r), dts)),
+        1e-3, 5, 0.7, interpret=True)
+    assert [t.dtype for t in got] == [dts[0][0], dts[2][0], dts[2][0],
+                                      dts[4][0], dts[0][0]]
+    assert [w.dtype for w in want] == [dts[0][1], dts[2][1], dts[2][1],
+                                       dts[4][1]]
+    tol = 1e-5 if pdtype == mdtype == rdtype == "float32" else 2e-2
+    for a, b in zip(got, want):
+        _close(a, b, tol)
+
+
 @pytest.mark.parametrize("step", (1, 100))
 def test_adam_sig_u_at_one_third_matches_jax_optim(step):
     """B2's ``u`` at scale 1/3 is ``repro.optim.adam``'s update times 1/3
@@ -313,7 +393,7 @@ def test_fused_worker_step_equals_adam_then_filter(inv_p, lr_decay):
             np.float32)) for k, v in params.items()}
         v_t = 0.7 / np.sqrt(t)
         fu, fsig, fres, fs = adam_isp_tree(grads, fs, params, fres,
-                                           opt.hparams, v_t, inv_p)
+                                           opt.hparams, t, v_t, inv_p)
         upd, us = opt.update(grads, us, params)
         uu = {k: a * inv_p for k, a in upd.items()}
         usig, ures = significance_tree(uu, params, ures, v_t)
@@ -326,6 +406,33 @@ def test_fused_worker_step_equals_adam_then_filter(inv_p, lr_decay):
         assert fs.step.dtype == torch.int32 and int(fs.step) == int(
             us.step) == t + 1
         params = {k: params[k] + fu[k] for k in params}
+
+
+@pytest.mark.parametrize("lr_decay", (False, True))
+@pytest.mark.parametrize("wd", (0.0, 0.1))
+def test_adam_tree_equals_adam_then_apply(lr_decay, wd):
+    """``adam_tree`` (the in-process BSP step through B3) against
+    ``optim.adam`` -> ``apply_updates`` over three steps on a tree with a
+    0-d leaf: parameters and moments within 1e-6 relative (the fused form
+    adds the float32 update before rounding), the same ``OptState``."""
+    rng = np.random.default_rng(14)
+    params = {"w": torch.from_numpy(rng.standard_normal(257).astype(
+        np.float32)), "b": torch.tensor(0.5)}
+    opt = optim.adam(1e-2, lr_decay=lr_decay, weight_decay=wd)
+    fp, up = params, params
+    fs = us = opt.init(params)
+    for t in (1, 2, 3):
+        grads = {k: torch.from_numpy(rng.standard_normal(v.shape).astype(
+            np.float32)) for k, v in params.items()}
+        fp, fs = adam_tree(grads, fs, fp, opt.hparams, t)
+        upd, us = opt.update(grads, us, up)
+        up = optim.apply_updates(up, upd)
+        for k in params:
+            for a, b in ((fp, up), (fs.mu, us.mu), (fs.nu, us.nu)):
+                np.testing.assert_allclose(a[k].numpy(), b[k].numpy(),
+                                           rtol=1e-6, atol=1e-7)
+        assert fs.step.dtype == torch.int32 and int(fs.step) == int(
+            us.step) == t + 1
 
 
 def test_tree_entry_points_run_per_leaf():
@@ -354,16 +461,27 @@ def test_adam_wrappers_reject_what_the_kernels_do_not_take():
         fused_adam.adam_update(f, f.bfloat16(), f, f, 1e-3, 1)
     with pytest.raises(TypeError):
         fused_adam.adam_update(f, f, f.bfloat16(), f, 1e-3, 1)
+    b = f.bfloat16()
+    with pytest.raises(TypeError):  # moments of two types
+        fused_adam.adam_update(b, b, b, f, 1e-3, 1)
+    with pytest.raises(TypeError):
+        fused_adam.adam_sig_update(b, b, f, b, b, 1e-3, 1, 0.5)
+    with pytest.raises(TypeError):  # p and g of two types
+        fused_adam.adam_sig_update(f, b, f, f, f, 1e-3, 1, 0.5)
+    with pytest.raises(TypeError):
+        fused_adam.adam_sig_update(f, f, f, f, f.half(), 1e-3, 1, 0.5)
+    with pytest.raises(TypeError):
+        fused_adam.adam_update(f, f, f.double(), f.double(), 1e-3, 1)
     with pytest.raises(ValueError):
         adam_isp_tree({"a": f}, optim.adam(1e-3, weight_decay=0.1).init(
             {"a": f}), {"a": f}, {"a": f},
-            optim.adam(1e-3, weight_decay=0.1).hparams, 0.5, 1.0)
+            optim.adam(1e-3, weight_decay=0.1).hparams, 1, 0.5, 1.0)
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     """B1, B2, B3, B4, B5 bit-exact against their plain versions on a CUDA
-    card."""
+    card; B2 also on bfloat16 leaves, B3 also with bfloat16 moments."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check)")
     dev = torch.device("cuda")
@@ -389,13 +507,22 @@ def test_kernels_match_plain_versions_on_the_card():
             s = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, step, v_t, scale)
             for g, w in zip(got, ref.adam_sig_ref(*ins, s)):
                 assert _bits(g.cpu()) == _bits(w.cpu())
+            bf = [t.bfloat16() for t in ins]  # B2 on bfloat16 leaves
+            got = fused_adam.adam_sig_update(*bf, 1e-3, step, v_t)
+            s = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, step, v_t)
+            for g, w in zip(got, ref.adam_sig_ref(*bf, s)):
+                assert g.dtype == torch.bfloat16
+                assert _bits(g.cpu()) == _bits(w.cpu())
         for dt in (torch.float32, torch.bfloat16):
-            for wd in (0.0, 0.1):
-                bi = [ins[0].to(dt), ins[1].to(dt), ins[2], ins[3]]
-                got = fused_adam.adam_update(*bi, 1e-3, 100, weight_decay=wd)
-                s = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, 100, wd)
-                for g, w in zip(got, ref.adam_ref(*bi, s)):
-                    assert _bits(g.cpu()) == _bits(w.cpu())
+            for mdt in (torch.float32, torch.bfloat16):
+                for wd in (0.0, 0.1):
+                    bi = [ins[0].to(dt), ins[1].to(dt), ins[2].to(mdt),
+                          ins[3].to(mdt)]
+                    got = fused_adam.adam_update(*bi, 1e-3, 100,
+                                                 weight_decay=wd)
+                    s = ref.adam_scalars(1e-3, 0.9, 0.999, 1e-8, 100, wd)
+                    for g, w in zip(got, ref.adam_ref(*bi, s)):
+                        assert _bits(g.cpu()) == _bits(w.cpu())
     assert build.LAUNCHES["significance_filter"] == 4
-    assert build.LAUNCHES["adam_sig_update"] == 8
-    assert build.LAUNCHES["adam_update"] == 16
+    assert build.LAUNCHES["adam_sig_update"] == 16
+    assert build.LAUNCHES["adam_update"] == 32

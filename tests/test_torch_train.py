@@ -1,5 +1,5 @@
-"""The port's in-process ``isp-pod`` trainer held to the JAX package on the
-CPU.
+"""The port's in-process trainer (``bsp``, ``isp`` and ``isp-pod``) held to
+the JAX package on the CPU.
 
 The loss and its gradients through ``LM.train_loss`` (attention through
 ``kernels.flash_attention.FlashAttention``, whose backward recomputes the
@@ -10,8 +10,11 @@ the 0.05 of ``tests/test_torch_lm.py``. Then ``train()`` for four steps of
 parameters (carried across as numpy leaves): in float32 per-step losses
 within 1e-4 relative and sent fractions within 1e-3; in bfloat16, with the
 JAX exchange switched to its fused kernels (what the card computes),
-within the tolerances stated at that test. Checkpoints of the lifted pod
-state cross both ways, and ``--restore`` resumes at the checkpointed pool.
+within the tolerances stated at that test. The same for ``bsp`` and
+``isp`` under Adam (B3 and B2 on every leaf), SGD and Nesterov, and an
+``isp`` run scaled in by the auto-tuner. Checkpoints of the lifted pod
+state and of the flat state cross both ways, and ``--restore`` resumes at
+the checkpointed pool.
 """
 
 from __future__ import annotations
@@ -253,6 +256,128 @@ def test_train_isp_pod_bf16_matches_fused_jax(tiny, monkeypatch, scheme):
     assert 0.0 < res["mean_sent_fraction"] < 1.0
 
 
+# a learning rate per optimizer at which the tiny arch's filter sends
+# something in four steps
+FLAT_LR = {"adam": 3e-4, "sgd": 0.5, "nesterov": 0.1}
+# (losses relative, sent fractions absolute) per dtype
+FLAT_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (5e-4, 2e-4)}
+
+
+@pytest.fixture
+def jax_distinct_moments(monkeypatch):
+    """JAX's ``sgd`` and ``nesterov`` init ``OptState(step, z, z)``, one
+    tree for both moments, and JAX's ``make_step`` donates the optimizer
+    state, so ``jtrain.train`` in ``bsp``/``isp`` with either raises
+    "donate the same buffer twice". Hand the JAX driver a copy of ``nu``;
+    the arithmetic is unchanged."""
+    make = jtrain.optim.make
+
+    def make_distinct(name, lr, **kw):
+        opt = make(name, lr, **kw)
+
+        def init(params):
+            st = opt.init(params)
+            return st._replace(nu=jax.tree.map(jnp.copy, st.nu))
+
+        return dataclasses.replace(opt, init=init)
+
+    monkeypatch.setattr(jtrain.optim, "make", make_distinct)
+
+
+def _assert_histories_agree(res, jres, dtype: str) -> None:
+    loss_tol, sent_tol = FLAT_TOL[dtype]
+    assert len(res["history"]) == len(jres["history"])
+    for h, jh in zip(res["history"], jres["history"]):
+        assert h["step"] == jh["step"] and h["pool"] == jh["pool"]
+        assert h["loss"] == pytest.approx(jh["loss"], rel=loss_tol)
+        assert abs(h["sent_fraction"] - jh["sent_fraction"]) <= sent_tol
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("optimizer", ("adam", "sgd", "nesterov"))
+@pytest.mark.parametrize("mode", ("bsp", "isp"))
+def test_train_flat_modes_match_jax(tiny, jax_distinct_moments, mode,
+                                    optimizer, dtype):
+    """``bsp`` and ``isp`` for four steps at three workers against the JAX
+    ``train()`` on the same parameters: in float32 losses within 1e-4
+    relative and sent fractions within 1e-3 (measured: 2.3e-7 and 1.9e-9);
+    in bfloat16 within 5e-4 and 2e-4 (measured up to 9.7e-5 and 1.0e-4).
+    Under Adam the port runs B3 or B2 (each leaf once, in float32 with one
+    rounding per output), where JAX runs ``optim.adam`` and the split in
+    jnp, which round bfloat16 after each operation."""
+    tiny(dtype)
+    res, jres = _run_both(_args(mode=mode, optimizer=optimizer,
+                                lr=FLAT_LR[optimizer]))
+    assert res["steps"] == jres["steps"] == 4
+    _assert_histories_agree(res, jres, dtype)
+    if mode == "bsp":
+        assert res["mean_sent_fraction"] == 1.0
+    else:
+        assert 0.0 < res["mean_sent_fraction"] < 1.0
+    assert res["device"] == "cpu" and res["kernel_launches"] == {}
+    for key in jres:
+        assert key in res, key
+
+
+@pytest.mark.parametrize("mode,dtype", (("isp", "float32"),
+                                        ("isp", "bfloat16"),
+                                        ("bsp", "float32")))
+def test_flat_scale_in_matches_jax(tiny, monkeypatch, tmp_path, mode, dtype):
+    """An auto-tuned run that scales in from 3 workers to 2 after step 2,
+    in both drivers. Under ``isp`` the flushed parameters equal JAX's
+    ``apply_updates(params, residual)`` on the port's state bit for bit and
+    the residual is zero after; the losses of all five steps agree within
+    the tolerances of ``test_train_flat_modes_match_jax``; the transition
+    checkpoints."""
+    tiny(dtype)
+    from repro import optim as joptim
+
+    seen = {}
+    flat = train.MODES[mode]
+
+    def scale_in(args, st, plan, isp):
+        seen["before"] = convert.to_leaves({"p": st.params,
+                                            "r": st.residual})
+        st = flat.scale_in(args, st, plan, isp)
+        seen["after"] = convert.to_leaves({"p": st.params,
+                                           "r": st.residual})
+        return st
+
+    monkeypatch.setitem(train.MODES, mode,
+                        dataclasses.replace(flat, scale_in=scale_in))
+    out = {}
+    for name, mod in (("port", train), ("jax", jtrain)):
+        calls = []
+
+        def decide(self):
+            calls.append(1)
+            return argparse.Namespace(remove_worker=len(calls) == 2)
+
+        monkeypatch.setattr(mod.ScaleInAutoTuner, "decide", decide)
+        d = str(tmp_path / name)
+        out[name] = mod.train(_args(mode=mode, steps=5, autotune=True,
+                                    checkpoint_dir=d, checkpoint_every=50))
+        assert os.path.isdir(os.path.join(d, "step_0000000002"))
+    res, jres = out["port"], out["jax"]
+    assert [h["pool"] for h in res["history"]] == [3, 3, 2, 2, 2]
+    assert res["final_pool"] == jres["final_pool"] == 2
+    _assert_histories_agree(res, jres, dtype)
+    n = len(seen["before"]) // 2
+    params, residual = seen["before"][:n], seen["before"][n:]
+    flushed, res_after = seen["after"][:n], seen["after"][n:]
+    if mode == "isp":
+        assert any(np.any(np.asarray(r, np.float32) != 0) for r in residual)
+        want = joptim.apply_updates([jnp.asarray(p) for p in params],
+                                    [jnp.asarray(r) for r in residual])
+    else:
+        want = params
+    for got, w in zip(flushed, want):
+        w = np.asarray(w)
+        assert got.dtype == w.dtype and got.tobytes() == w.tobytes()
+    for r in res_after:
+        assert not np.any(np.asarray(r, np.float32) != 0)
+
+
 def _state_leaves(st) -> list:
     return convert.to_leaves({"params": st.params, "opt": st.opt_state,
                               "residual": st.residual})
@@ -263,33 +388,34 @@ def _jstate_leaves(st) -> list:
         {"params": st.params, "opt": st.opt_state, "residual": st.residual})]
 
 
-def _pod_states(dtype: str):
-    """The same lifted pod state (3 pods, non-zero moments and residuals)
-    in both packages."""
+def _states(dtype: str, pods: int = 0):
+    """The same train state in both packages: lifted over ``pods`` pods,
+    or the flat state of ``bsp``/``isp`` when 0; non-zero moments and
+    residuals in the parameters' dtype."""
     jcfg, cfg = _pair(dtype)
     jparams = _jparams(jcfg)
     from repro import optim as joptim
 
     jopt = joptim.adam(1e-3).init(jparams)
     rng = np.random.default_rng(0)
+    lead = (pods,) if pods else ()
     noise = lambda t: jax.tree.map(  # noqa: E731
-        lambda x: jnp.asarray(rng.standard_normal((3,) + x.shape) * 1e-3,
+        lambda x: jnp.asarray(rng.standard_normal(lead + x.shape) * 1e-3,
                               x.dtype), t)
-    jopt = joptim.OptState(jnp.full((3,), 5, jnp.int32), noise(jopt.mu),
+    jopt = joptim.OptState(jnp.full(lead, 5, jnp.int32), noise(jopt.mu),
                            noise(jopt.nu))
     jst = jtrain.TrainState(jparams, jopt, noise(jparams), step=4, pool=3)
     from repro_torch import optim
 
     params = _port_params(cfg, jparams)
-    like = train.TrainState(
-        params, train.lift_pod(optim.adam(1e-3).init(params), 3),
-        train.lift_pod(params, 3), step=0, pool=3)
+    opt, res = optim.adam(1e-3).init(params), params
+    if pods:
+        opt, res = train.lift_pod(opt, pods), train.lift_pod(res, pods)
+    like = train.TrainState(params, opt, res, step=0, pool=1)
     return jst, like
 
 
-@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-def test_pod_checkpoints_cross_both_ways(tmp_path, dtype):
-    jst, like = _pod_states(dtype)
+def _assert_checkpoints_cross(tmp_path, jst, like) -> None:
     jd, d = str(tmp_path / "from_jax"), str(tmp_path / "from_port")
     jtrain.save_checkpoint(jd, jst)
     st = train.restore_checkpoint(jd, like)
@@ -304,6 +430,20 @@ def test_pod_checkpoints_cross_both_ways(tmp_path, dtype):
     assert (back.step, back.pool) == (4, 3)
     for g, w in zip(_jstate_leaves(back), want):
         assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_pod_checkpoints_cross_both_ways(tmp_path, dtype):
+    _assert_checkpoints_cross(tmp_path, *_states(dtype, pods=3))
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_flat_checkpoints_cross_both_ways(tmp_path, dtype):
+    """The ``bsp``/``isp`` state: params, a 0-d step and moments in the
+    parameters' dtype (bfloat16 moments on a bfloat16 model), residual."""
+    jst, like = _states(dtype)
+    assert jst.opt_state.step.shape == ()
+    _assert_checkpoints_cross(tmp_path, jst, like)
 
 
 def test_restore_resumes_with_the_checkpointed_pool(tiny, tmp_path):
@@ -338,11 +478,14 @@ def test_restore_resumes_with_the_checkpointed_pool(tiny, tmp_path):
         assert h["loss"] == pytest.approx(jh["loss"], rel=1e-4)
 
 
-def test_unported_modes_and_a_missing_card_raise():
-    for mode in ("bsp", "isp"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.train(_args(mode=mode))
+def test_every_mode_is_ported_and_a_missing_card_raises():
+    """Every mode of the JAX driver has a step and a scale-in here; the
+    default ``--device cuda`` without a card raises, also through the CLI
+    with no ``--mode`` (``bsp``)."""
     assert set(train.MODES) == set(jtrain.MODES)
+    for name, mode in train.MODES.items():
+        assert mode.build_step is not None and mode.scale_in is not None
+        assert mode.pod == jtrain.MODES[name].pod
     with pytest.raises(NotImplementedError):
         LM(dataclasses.replace(
             train.LM_8M, groups=uniform_groups(BlockSpec(
@@ -352,8 +495,8 @@ def test_unported_modes_and_a_missing_card_raise():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.train(_args(device="cuda"))
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--mode",
-         "isp-pod", "--steps", "1", "--workers", "1", "--seq", "8"],
+        [sys.executable, "-m", "repro_torch.launch.train", "--steps", "1",
+         "--workers", "1", "--seq", "8"],
         capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=SRC),
         timeout=120)
     assert out.returncode != 0 and "device='cpu'" in out.stderr
@@ -379,3 +522,23 @@ def test_cli_runs_isp_pod_on_the_cpu(tmp_path):
     assert res["steps"] == 2 and res["final_pool"] == 2
     assert np.isfinite(res["final_loss"]) and res["device"] == "cpu"
     assert os.path.isdir(tmp_path / "ck" / "step_0000000002")
+
+
+def test_cli_default_mode_runs_bsp_on_the_cpu(tmp_path):
+    """No ``--mode``: the JAX CLI's default, ``bsp`` with Adam, at lm-8m's
+    width on the CPU for two steps (plain versions: no launches)."""
+    path = str(tmp_path / "res.json")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "lm-8m",
+         "--steps", "2", "--workers", "2", "--per-worker-batch", "1",
+         "--seq", "16", "--device", "cpu", "--out", path],
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=SRC),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    import json
+
+    with open(path) as f:
+        res = json.load(f)
+    assert "mode=bsp" in out.stdout
+    assert res["steps"] == 2 and res["mean_sent_fraction"] == 1.0
+    assert np.isfinite(res["final_loss"]) and res["kernel_launches"] == {}
