@@ -8,13 +8,16 @@ Phases (any failure exits non-zero; nothing is caught):
 1. device — the card's name and power limit (nvidia-smi);
 2. build — every kernel of the main paths from ``src/repro_torch/kernels/
    csrc`` with nvcc for sm_90a (all sources at once), ptxas registers and
-   spills (a spill fails the run);
+   spills (a spill fails the run); the B7 library's SASS (``cuobjdump
+   -sass``) must hold ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads):
+   the bf16 forward was built for the tensor cores;
 3. bit-exactness — B1 (significance filter), B4 (wire pack) and B5 (wire
    unpack-add) against their plain PyTorch versions on the card, at
    n in {1, 7, 13, 127, 1000003, 213620, 1431340}, with -0.0 and all-zero
    tiles in the inputs; B4 at float32, fp16 and bf16, B5 on float32 and
-   int32 targets. B2 (fused Adam + filter) and B3 (fused Adam) at the same
-   n and at 0-d, steps 1 and 100, in every combination of float32 and
+   int32 targets and, decode only, on float16 and bfloat16 targets from
+   fp16 and bf16 values. B2 (fused Adam + filter) and B3 (fused Adam) at
+   the same n and at 0-d, steps 1 and 100, in every combination of float32 and
    bfloat16 storage (B2: p/g, moments, residual; B3: p/g, moments); B2 at
    v_t in {0, 0.7} (float32 also at scale 1/3), B3 at weight decay in
    {0, 0.1}; and both at lm-100m's largest leaves (18,874,368 and
@@ -22,9 +25,11 @@ Phases (any failure exits non-zero; nothing is caught):
    leaves, B3 with bfloat16 moments and p in float32 and bfloat16.
    Tolerance: bit-identical. B7 (flash attention) against
    ``ref.mha_ref`` at float32 (2e-5) and bfloat16 (2e-2) over Dh 64 / 128
-   / 256, causal and not, windows 64 and 128, a q_offset (Sq 128 against
-   Skv 384 at 256), ragged lengths (200, 333, 1000), GQA 24/8 and
-   phi4-mini's prefill (B 4, S 1024); B8 (sLSTM scan) against
+   / 256, causal and not, windows 64, 100 and 128, q_offsets (Sq 128
+   against Skv 384 at 256, Sq 100 against Skv 300 at 200), ragged lengths
+   (127, 129, 200, 255, 333, 1000; the tensor-core tile edges at Dh 32,
+   64 and 128), GQA 24/8, 12/4 and 8/2, phi4-mini's prefill (B 4, S 1024)
+   and lm-100m's bsp step (B 16, S 256, H 12); B8 (sLSTM scan) against
    ``ref.slstm_scan_ref`` on h and the final (c, n, h), from a zero and a
    non-zero state, at B 2, S 16, d 64, H 2 (2e-5) and at xlstm-1.3b's
    prefill (B 4, S 1024, d 2048, H 4; 1e-4). Tolerances: those of the JAX
@@ -93,8 +98,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``torch._fused_adamw_`` call on the same float32 tensors; B3 and B2
    again at lm-100m's FF leaf with every operand bfloat16 (B3's row),
    B3 beside ``torch._fused_adamw_`` on the same bfloat16 tensors. B7 at
-   phi4-mini's prefill beside one ``scaled_dot_product_attention`` call
-   and B8 at xlstm-1.3b's, each beside the larger of its bytes over 3.35
+   phi4-mini's prefill and at the lm-100m bsp, lm-100m isp-pod and lm-8m
+   bsp attention shapes, each beside one ``scaled_dot_product_attention``
+   call (and at both query tiles, 64 and 128 rows), and B8 at
+   xlstm-1.3b's prefill, each beside the larger of its bytes over 3.35
    TB/s and its operations over the peak rate of their type (989 TFLOP/s
    bf16, 67 TFLOP/s float32);
 7. step profile — one worker step's device work at ML-10M width under
@@ -187,6 +194,10 @@ BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 # B7 and B8 sum in float32 in another order than their plain versions:
 # the tolerances of the JAX package's own tests (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the bf16 B7 rounds each probability to bf16 before P V: against a model of
+# that arithmetic each term may differ by two roundings of P and the output
+# by one, at bf16's unit roundoff
+BF16_U = 2.0 ** -8
 SLSTM_TOL, SLSTM_TOL_FULL = 2e-5, 1e-4
 # the LM serving paths: arch -> (the kernel, its launches in one prefill)
 SERVE = {"phi4-mini-3.8b": ("flash_attention", 32),
@@ -297,6 +308,12 @@ def check_kernels(dev) -> dict:
             require(_same(g, w), f"wire_unpack_add differs at n={n} {vdt}")
             err["wire_unpack_add"] = max(err["wire_unpack_add"],
                                          _abs_err(g, w))
+            if vdt != torch.float32:  # decode only into half leaves
+                for tdt in (torch.float16, torch.bfloat16):
+                    g = wire_pack.wire_unpack(mask, cvals, n, tdt)
+                    w = ref.wire_unpack_ref(mask, cvals, n, tdt)
+                    require(_same(g, w), f"wire_unpack {vdt} -> {tdt} "
+                            f"differs at n={n}")
         si = (sig * 1000).to(torch.int32)
         got = wire_pack.wire_pack(si, torch.int32)
         want = ref.wire_pack_ref(si, torch.int32)
@@ -445,12 +462,69 @@ FLASH_CASES = (
        (2, 333, 333, 24, 8, 128, True, None, 0),  # GQA 24/8
        (4, 1024, 1024, 24, 8, 128, True, None, 0),  # phi4-mini prefill
        (4, 256, 256, 12, 12, 64, True, None, 0),  # lm-100m training
-       (4, 256, 256, 8, 8, 32, True, None, 0)])  # lm-8m training
+       (4, 256, 256, 8, 8, 32, True, None, 0)]  # lm-8m training
+    # the tensor-core kernel's tile edges (BQ 64 / 128, BK 64 / 128)
+    + [(2, s, s, 2, 2, dh, causal, None, 0) for s in (127, 129, 255)
+       for dh in (32, 64, 128) for causal in (True, False)]
+    + [(1, 100, 300, 2, 2, 128, True, None, 200),  # q_offset off the tile
+       (1, 300, 300, 2, 2, 64, True, 100, 0),  # window 100
+       (2, 256, 256, 12, 4, 64, True, None, 0),  # GQA 12/4
+       (2, 256, 256, 8, 2, 32, True, None, 0),  # GQA 8/2
+       (16, 256, 256, 12, 12, 64, True, None, 0)])  # lm-100m bsp step
+
+
+def _mha_p_bf16(q, k, v, causal, window, q_offset):
+    """``ref.mha_ref``'s arithmetic with the bf16 B7's one new rounding: the
+    unnormalised probabilities P go to bf16 before P V, their sum l stays
+    float32. Returns the float32 output and the size of its terms,
+    ``(P |v|) / l``, both (B, Sq, H, Dh)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+
+    b, sq, h, dh = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    qg = q.float().reshape(b, sq, kh, h // kh, dh)
+    logits = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * scale
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    allow = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        allow &= k_pos <= q_pos
+    if window is not None:
+        allow &= q_pos - k_pos < window
+    logits = torch.where(allow, logits, ref.NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    pb = p.bfloat16().float()
+
+    def pv(x):
+        y = torch.einsum("bkgqc,bckd->bkgqd", pb, x) / l
+        return y.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+
+    vf = v.float()
+    return pv(vf), pv(vf.abs())
+
+
+def _within_p_rounding(got, q, k, v, kw, what: str) -> float:
+    """Require the bf16 B7 within ``2u (P |v|) / l + u |o|`` of
+    ``_mha_p_bf16``'s ``o`` everywhere (u = BF16_U, plus 1e-6); returns the
+    largest share of that bound used."""
+    want, size = _mha_p_bf16(q, k, v, **kw)
+    bound = 2 * BF16_U * size + BF16_U * want.abs() + 1e-6
+    share = float(((got.float() - want).abs() / bound).max())
+    require(share <= 1.0, f"{what}: off the P-rounded-to-bf16 model by "
+            f"{share:.3f} of its bound")
+    return share
 
 
 def check_flash(dev) -> float:
     """B7 against ``ref.mha_ref`` on the card over FLASH_CASES, each at
-    float32 and bfloat16; returns the largest absolute difference."""
+    float32 and bfloat16, and the bf16 kernel also against the model of its
+    arithmetic (``_within_p_rounding``); returns the largest absolute
+    difference from ``ref.mha_ref``."""
     import torch
 
     from repro_torch.kernels import flash_attention, ref
@@ -471,10 +545,15 @@ def check_flash(dev) -> float:
                          f"flash_attention B{b} Sq{sq} Skv{skv} H{h}/{kh} "
                          f"Dh{dh} {name} {kw}")
             worst = max(worst, err)
+            extra = {}
+            if dt == torch.bfloat16:
+                extra["p_bf16_model_bound_share"] = _within_p_rounding(
+                    got, q, k, v, kw, f"flash_attention B{b} Sq{sq} "
+                    f"Skv{skv} H{h}/{kh} Dh{dh} {kw}")
             log("kernel-check", kernel="flash_attention", B=b, Sq=sq,
                 Skv=skv, H=f"{h}/{kh}", Dh=dh, dtype=name, causal=causal,
                 window=window, q_offset=off, max_abs_err=err,
-                tolerance=FLASH_TOL[name])
+                tolerance=FLASH_TOL[name], **extra)
     return worst
 
 
@@ -1492,70 +1571,103 @@ def profile_serve(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def time_lm_kernels(dev, flush) -> dict:
-    """B7 at phi4-mini's prefill shape (B 4, S 1024, H 24/8, Dh 128,
-    causal, bf16) beside one ``scaled_dot_product_attention`` call (its
-    yardstick only; the port never calls it), and B8 at xlstm-1.3b's
-    (B 4, S 1024, d 2048, H 4, R bf16), each beside its bound."""
+# B7's timed shapes, all causal bf16: (label, B, S, H, K, Dh); the first
+# gives the kernel's row in the summary
+FLASH_TIMED = (("phi4-mini prefill", 4, 1024, 24, 8, 128),
+               ("lm-100m bsp step", 16, 256, 12, 12, 64),
+               ("lm-100m isp-pod step", 4, 256, 12, 12, 64),
+               ("lm-8m bsp step", 16, 256, 8, 8, 32))
+
+
+def time_flash(dev, flush) -> dict:
+    """B7 at each FLASH_TIMED shape beside one
+    ``scaled_dot_product_attention`` call on (B, H, S, Dh) copies of the
+    same tensors (its yardstick only; the port never calls it) and beside
+    its bound. Returns the first shape's row."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention, ref, slstm_scan
+    from repro_torch.kernels import flash_attention, ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
-    b, s, h, kh, dh = 4, 1024, 24, 8, 128
-    q = _randn((b, s, h, dh), gen, dev, torch.bfloat16)
-    k = _randn((b, s, kh, dh), gen, dev, torch.bfloat16)
-    v = _randn((b, s, kh, dh), gen, dev, torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = None
+    for label, b, s, h, kh, dh in FLASH_TIMED:
+        q = _randn((b, s, h, dh), gen, dev, torch.bfloat16)
+        k = _randn((b, s, kh, dh), gen, dev, torch.bfloat16)
+        v = _randn((b, s, kh, dh), gen, dev, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+        def kern():
+            return flash_attention.flash_attention(q, k, v, causal=True)
 
-    pairs = b * h * s * (s + 1) // 2  # allowed (query, key) pairs
-    flash_flops = 4 * dh * pairs
-    flash_bytes = 2 * (2 * b * s * h * dh + 2 * b * s * kh * dh)
-    bd, sd, d, heads = 4, 1024, 2048, 4
-    xg, r, _ = _slstm_case(dev, gen, bd, sd, d, heads, torch.bfloat16, False)
-    slstm_flops = 2 * bd * sd * d * 4 * (d // heads)
-    slstm_bytes = (xg.numel() * 4 + bd * sd * d * 4 + r.numel() * 2
-                   + 6 * bd * d * 4)  # xg, h, R, initial and final state
-    cases = {
-        "flash_attention": (
-            lambda: flash_attention.flash_attention(q, k, v, causal=True),
-            lambda: ref.mha_ref(q, k, v, causal=True), sdpa,
-            flash_bytes, flash_flops, BF16_FLOPS, 20, 5),
-        "slstm_scan": (
-            lambda: slstm_scan.slstm_scan(xg, r),
-            lambda: ref.slstm_scan_ref(xg, r), None,
-            slstm_bytes, slstm_flops, FP32_FLOPS, 10, 2),
-    }
-    out = {}
-    for name, (kern, plain, library, nbytes, flops, peak, reps,
-               plain_reps) in cases.items():
-        t_cold = _time(kern, dev, reps, True, flush)
-        t_warm = _time(kern, dev, reps, False, flush)
-        p_cold = _time(plain, dev, plain_reps, True, flush)
-        lib_ms = (_time(library, dev, reps, True, flush)
-                  if library is not None else None)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        pairs = b * h * s * (s + 1) // 2  # allowed (query, key) pairs
+        flops = 4 * dh * pairs
+        nbytes = 2 * (2 * b * s * h * dh + 2 * b * s * kh * dh)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         bound = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log("kernel-time", kernel=name, ms=t_cold, ms_l2warm=t_warm,
-            device_ms_l2warm=_device_ms(kern, 5), plain_ms=p_cold,
-            bound_ms=bound, bound_by=bound_by, bytes=nbytes, flops=flops,
+        t_cold = _time(kern, dev, 20, True, flush)
+        t_warm = _time(kern, dev, 20, False, flush)
+        p_cold = _time(lambda: ref.mha_ref(q, k, v, causal=True), dev, 5,
+                       True, flush)
+        lib_ms = _time(sdpa, dev, 20, True, flush)
+        dev_ms = _device_ms(kern, 10)
+        lib_dev_ms = _device_ms(sdpa, 10)
+        log("kernel-time", kernel="flash_attention", shape=json.dumps(label),
+            B=b, S=s, H=f"{h}/{kh}", Dh=dh, ms=t_cold, ms_l2warm=t_warm,
+            device_ms_l2warm=dev_ms, plain_ms=p_cold, bound_ms=bound,
+            bound_by=bound_by, bytes=nbytes, flops=flops,
             bytes_ms=t_bytes * 1e3, operations_ms=t_ops * 1e3,
-            library_ms=lib_ms,
-            library_device_ms_l2warm=(_device_ms(library, 5)
-                                      if library is not None else None),
-            library_note=("F.scaled_dot_product_attention(is_causal=True, "
-                          "enable_gqa=True) on (B, H, S, Dh) copies"
-                          if library is not None else
-                          "no single PyTorch call does the sLSTM scan"))
-        out[name] = {"ms": t_cold, "plain_ms": p_cold, "bound_ms": bound,
-                     "bound_by": bound_by, "library_ms": lib_ms}
+            library_ms=lib_ms, library_device_ms_l2warm=lib_dev_ms,
+            device_ratio_to_library=dev_ms / lib_dev_ms,
+            bound_share=bound / dev_ms,
+            library_note="F.scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True) on (B, H, S, Dh) copies")
+        if out is None:
+            out = {"ms": t_cold, "plain_ms": p_cold, "bound_ms": bound,
+                   "bound_by": bound_by, "library_ms": lib_ms}
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def time_lm_kernels(dev, flush) -> dict:
+    """B7 (``time_flash``), and B8 at xlstm-1.3b's prefill shape (B 4, S
+    1024, d 2048, H 4, R bf16) beside its bound."""
+    import torch
+
+    from repro_torch.kernels import ref, slstm_scan
+
+    out = {"flash_attention": time_flash(dev, flush)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    bd, sd, d, heads = 4, 1024, 2048, 4
+    xg, r, _ = _slstm_case(dev, gen, bd, sd, d, heads, torch.bfloat16, False)
+    flops = 2 * bd * sd * d * 4 * (d // heads)
+    nbytes = (xg.numel() * 4 + bd * sd * d * 4 + r.numel() * 2
+              + 6 * bd * d * 4)  # xg, h, R, initial and final state
+
+    def kern():
+        return slstm_scan.slstm_scan(xg, r)
+
+    t_cold = _time(kern, dev, 10, True, flush)
+    t_warm = _time(kern, dev, 10, False, flush)
+    p_cold = _time(lambda: ref.slstm_scan_ref(xg, r), dev, 2, True, flush)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    bound = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log("kernel-time", kernel="slstm_scan", ms=t_cold, ms_l2warm=t_warm,
+        device_ms_l2warm=_device_ms(kern, 5), plain_ms=p_cold,
+        bound_ms=bound, bound_by=bound_by, bytes=nbytes, flops=flops,
+        bytes_ms=t_bytes * 1e3, operations_ms=t_ops * 1e3, library_ms=None,
+        library_note="no single PyTorch call does the sLSTM scan")
+    out["slstm_scan"] = {"ms": t_cold, "plain_ms": p_cold,
+                         "bound_ms": bound, "bound_by": bound_by,
+                         "library_ms": None}
     return out
 
 
@@ -1914,6 +2026,23 @@ def _time_adam_bf16(dev, flush) -> dict:
     return out["adam_update"]
 
 
+def sass_counts(lib) -> dict:
+    """``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA tensor loads) in a
+    library's SASS, from ``cuobjdump -sass`` (the toolkit's, else the one
+    in Triton's package)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        import triton
+
+        tool = os.path.join(os.path.dirname(triton.__file__), "backends",
+                            "nvidia", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+
+
 def main() -> int:
     import torch
 
@@ -1950,6 +2079,10 @@ def main() -> int:
         log("ptxas", source=name, registers=s["registers"],
             spill_store_bytes=s["spill_store_bytes"])
         require(s["spill_store_bytes"] == 0, f"{name}: register spills")
+    sass = sass_counts(libs["flash_attention"])
+    log("sass", source="flash_attention", **sass)
+    require(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+            "flash_attention: no wgmma or no TMA load in its SASS")
 
     err = check_kernels(dev)
     check_pod_kernels(dev, err)

@@ -21,7 +21,11 @@
 // (round to nearest even, as numpy and ml_dtypes do), the residual is one
 // correctly rounded subtraction, and the decode add is `__fadd_rn` with an
 // unconditional `+ 0.0f` off the support, so `-0.0` in the target turns into
-// `+0.0` exactly as numpy's `target + decoded` does.
+// `+0.0` exactly as numpy's `target + decoded` does. The decode-only form
+// writes each value itself (widened or narrowed once, round to nearest even,
+// as numpy's `astype`), so a `-0.0` on the support survives; it also takes
+// float16 and bfloat16 targets, which the add does not (as in the JAX
+// package, only exact accumulates are fused).
 //
 // Type codes shared with the Python wrapper: 0 float32, 1 float16,
 // 2 bfloat16, 3 int32. Each entry point checks cudaGetLastError() after
@@ -32,6 +36,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -221,7 +227,7 @@ __device__ __forceinline__ int32_t add_rn(int32_t t, int32_t v) {
 
 template <typename Tt, typename Tv>
 struct Widen {
-  __device__ static Tt apply(Tv v) { return (Tt)tof(v); }
+  __device__ static Tt apply(Tv v) { return fromf<Tt>(tof(v)); }
 };
 template <>
 struct Widen<int32_t, int32_t> {
@@ -241,8 +247,13 @@ __global__ void unpack_apply(const Tt* __restrict__ target,
   int pre = block_prefix(bit, warp_tot, &tot);
   if (i < n) {
     Tt v = bit ? Widen<Tt, Tv>::apply(cvals[(int64_t)offsets[blockIdx.x] + pre])
-               : (Tt)0;
-    out[i] = accumulate ? add_rn(target[i], v) : v;
+               : Tt{};
+    if constexpr (std::is_same<Tt, float>::value ||
+                  std::is_same<Tt, int32_t>::value) {
+      out[i] = accumulate ? add_rn(target[i], v) : v;
+    } else {
+      out[i] = v;  // float16 / bfloat16: decode only
+    }
   }
 }
 
@@ -383,6 +394,7 @@ extern "C" int wire_unpack_add_launch(const void* target, int target_code,
                                       void* out, int accumulate,
                                       void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (accumulate && (target_code == 1 || target_code == 2)) return -1;
 #define UNPACK(TT, TV)                                                \
   return unpack_all<TT, TV>(target, mask, n, cvals, counts, offsets, nnz, \
                             out, accumulate, s)
@@ -390,6 +402,10 @@ extern "C" int wire_unpack_add_launch(const void* target, int target_code,
     case 0 * 4 + 0: UNPACK(float, float);
     case 0 * 4 + 1: UNPACK(float, __half);
     case 0 * 4 + 2: UNPACK(float, __nv_bfloat16);
+    case 1 * 4 + 1: UNPACK(__half, __half);
+    case 1 * 4 + 2: UNPACK(__half, __nv_bfloat16);
+    case 2 * 4 + 1: UNPACK(__nv_bfloat16, __half);
+    case 2 * 4 + 2: UNPACK(__nv_bfloat16, __nv_bfloat16);
     case 3 * 4 + 3: UNPACK(int32_t, int32_t);
     default: return -1;
   }

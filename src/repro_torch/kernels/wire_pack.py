@@ -96,15 +96,19 @@ def _unpack(target, mask_bytes, cvals, n, dtype, accumulate):
     return out
 
 
-def _check_unpack(mask_bytes, cvals, n, dtype):
+_HALVES = (torch.float16, torch.bfloat16)
+
+
+def _check_unpack(mask_bytes, cvals, n, dtype, accumulate):
     if mask_bytes.dtype != torch.uint8 or mask_bytes.numel() != (n + 7) // 8:
         raise ValueError(f"{UNPACK_ADD}: mask must be uint8[ceil(n/8)]")
     ok = (dtype == torch.int32 and cvals.dtype == torch.int32) or (
-        dtype == torch.float32 and cvals.dtype in
-        (torch.float32, torch.float16, torch.bfloat16))
+        dtype == torch.float32 and cvals.dtype in (torch.float32, *_HALVES)
+    ) or (not accumulate and dtype in _HALVES and cvals.dtype in _HALVES)
     if not ok:
         raise TypeError(f"{UNPACK_ADD}: unsupported types {cvals.dtype} -> "
-                        f"{dtype} (float32 and int32 targets only)")
+                        f"{dtype} (float32 and int32 targets; float16 and "
+                        f"bfloat16 only to decode)")
 
 
 def wire_unpack_add(
@@ -115,7 +119,7 @@ def wire_unpack_add(
     flat order. Every element gets an add, ``+0`` off the support."""
     if target.dim() != 1 or target.numel() < 1:
         raise ValueError(f"{UNPACK_ADD}: expects a non-empty 1-D target")
-    _check_unpack(mask_bytes, cvals, target.numel(), target.dtype)
+    _check_unpack(mask_bytes, cvals, target.numel(), target.dtype, True)
     if target.device.type == "cpu":
         return ref.wire_unpack_add_ref(target, mask_bytes, cvals)
     return _unpack(target, mask_bytes, cvals, target.numel(), target.dtype,
@@ -125,8 +129,11 @@ def wire_unpack_add(
 def wire_unpack(
     mask_bytes: torch.Tensor, cvals: torch.Tensor, n: int, dtype: torch.dtype
 ) -> torch.Tensor:
-    """Decode only: the values on the support, exact zeros elsewhere."""
-    _check_unpack(mask_bytes, cvals, n, dtype)
+    """Decode only: the values on the support, exact zeros elsewhere.
+    float32 and int32 targets as ``wire_unpack_add``, and float16 or
+    bfloat16 targets from float16 or bfloat16 values (each value rounded
+    once to the target's type; ``-0.0`` on the support is kept)."""
+    _check_unpack(mask_bytes, cvals, n, dtype, False)
     if mask_bytes.device.type == "cpu":
         return ref.wire_unpack_ref(mask_bytes, cvals, n, dtype)
     return _unpack(None, mask_bytes, cvals, n, dtype, accumulate=False)

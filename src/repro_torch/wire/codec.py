@@ -328,14 +328,16 @@ def decode_leaf(meta: dict, blob, impl: str = "numpy",
                 device: Any = None) -> np.ndarray:
     """Decode one leaf's bytes back into a numpy array of its dtype.
 
-    Under ``impl='cuda'``/'auto' a bitmap leaf of a float32 or int32 leaf
-    goes through the B5 kernel on ``device`` (default ``cuda``); every
-    other case is the numpy reference. Bit-identical across impls.
+    Under ``impl='cuda'``/'auto' a bitmap leaf of a float32, float16,
+    bfloat16 or int32 leaf goes through the B5 kernel on ``device``
+    (default ``cuda``), as the JAX package's ``decode_leaf`` sends every
+    leaf ``pallas_ok`` admits; every other case is the numpy reference.
+    Bit-identical across impls.
     """
     shape, dt, vdt, n = _leaf_geometry(meta)
     enc = meta["enc"]
     nnz = int(meta["nnz"])
-    if (enc == "bitmap" and dt.name in _CUDA_ADD_DTYPES
+    if (enc == "bitmap"
             and resolve_impl(impl, n, dt, meta.get("q", "none")) == "cuda"):
         from repro_torch import device as device_lib
         from repro_torch.kernels import wire_pack

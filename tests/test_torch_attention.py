@@ -167,6 +167,98 @@ def test_attention_block_prefill_and_decode_match_jax():
         _close(cache[key], jcache[key], 1e-5)
 
 
+def _p_bf16_model(q, k, v, causal, window, q_offset):
+    """``ref.mha_ref``'s arithmetic with the card kernel's one new rounding:
+    the unnormalised probabilities go to bf16 before P V, while their sum
+    stays float32 (a model of the tensor-core B7, not a port function).
+    Returns the float32 output and the size of its terms, ``(P |v|) / l``."""
+    b, sq, h, dh = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    qg = q.float().reshape(b, sq, kh, h // kh, dh)
+    logits = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * scale
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    allow = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        allow &= k_pos <= q_pos
+    if window is not None:
+        allow &= q_pos - k_pos < window
+    logits = torch.where(allow, logits, ref.NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    pb = p.bfloat16().float()
+
+    def pv(x):
+        y = torch.einsum("bkgqc,bckd->bkgqd", pb, x) / l
+        return y.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+
+    return pv(v.float()), pv(v.float().abs())
+
+
+def _mha_p_bf16(q, k, v, causal, window, q_offset):
+    return _p_bf16_model(q, k, v, causal, window, q_offset)[0].to(q.dtype)
+
+
+BF16_U = 2.0 ** -8  # bf16's unit roundoff
+
+
+def _p_rounding_share(got, q, k, v, kw) -> float:
+    """The largest share of ``2u (P |v|) / l + u |o| + 1e-6`` by which
+    ``got`` is off the model's ``o``: each term may differ by two roundings
+    of P (the kernel rounds P against its running row max) and the output
+    by one. At most 1 for the bf16 kernel."""
+    want, size = _p_bf16_model(q, k, v, **kw)
+    bound = 2 * BF16_U * size + BF16_U * want.abs() + 1e-6
+    return float(((got.float() - want).abs() / bound).max())
+
+
+# (B, Sq, Skv, H, K, causal, window, q_offset) at each Dh
+_ROUNDING_CASES = {
+    "causal": (2, 255, 255, 2, 2, True, None, 0),
+    "window": (1, 300, 300, 2, 2, True, 100, 0),
+    "q_offset": (1, 100, 300, 2, 2, True, None, 200),
+    "gqa": (1, 129, 129, 12, 4, True, None, 0),
+}
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("case", sorted(_ROUNDING_CASES))
+def test_p_rounded_to_bf16_stays_within_the_bf16_tolerance(dh, case):
+    """The tensor-core B7 rounds P to bf16 before P V (the TPU kernel keeps
+    it float32): that arithmetic, modelled here, stays within BF16_TOL of
+    JAX's flash attention in interpret mode and of ``ref.mha_ref``."""
+    b, sq, skv, h, kh, causal, window, off = _ROUNDING_CASES[case]
+    (jq, q), (jk, k), (jv, v) = _qkv((b, sq, h, dh), (b, skv, kh, dh),
+                                     seed=dh + sq + h, bf16=True)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    got = _mha_p_bf16(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16
+    rep = h // kh
+    want = jops.flash_attention(jq, jnp.repeat(jk, rep, axis=2),
+                                jnp.repeat(jv, rep, axis=2), interpret=True,
+                                **kw)
+    _close(got, want.astype(jnp.float32), BF16_TOL)
+    _close(got, ref.mha_ref(q, k, v, **kw).float(), BF16_TOL)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_p_rounding_bound_holds_the_plain_version_and_not_a_dropped_tile(dh):
+    """The card check's bound on the bf16 kernel (``_p_rounding_share``)
+    holds ``ref.mha_ref`` in bf16 (within one rounding of P of the model),
+    causal or not, but not an output that skipped one 64-key tile of a
+    512-key row."""
+    (_, q), (_, k), (_, v) = _qkv((2, 512, 4, dh), (2, 512, 2, dh),
+                                  seed=dh, bf16=True)
+    for causal in (True, False):
+        kw = dict(causal=causal, window=None, q_offset=0)
+        assert _p_rounding_share(ref.mha_ref(q, k, v, **kw), q, k, v,
+                                 kw) <= 1.0
+    keep = torch.cat([torch.arange(64), torch.arange(128, 512)])
+    skipped = ref.mha_ref(q, k[:, keep], v[:, keep], causal=False)
+    assert _p_rounding_share(skipped, q, k, v, kw) > 1.0
+
+
 # ---- B8 --------------------------------------------------------------------------
 
 
@@ -226,14 +318,28 @@ def test_kernels_match_their_plain_versions_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
-    for bf16 in (False, True):
-        (_, q), (_, k), (_, v) = _qkv((2, 200, 24, 128), (2, 200, 8, 128),
-                                      seed=1, bf16=bf16)
-        q, k, v = q.to(dev), k.to(dev), v.to(dev)
-        got = ops.flash_attention(q, k, v, causal=True)
-        want = ref.mha_ref(q, k, v, causal=True)
-        _close(got.cpu(), want.cpu().float().numpy(),
-               BF16_TOL if bf16 else F32_TOL)
+    # (B, Sq, Skv, H, K, Dh, causal, window, q_offset): GQA 24/8, then the
+    # tensor-core kernel's tile edges (BQ 64 / 128, BK 128)
+    cases = [(2, 200, 200, 24, 8, 128, True, None, 0)]
+    cases += [(2, s, s, 2, 2, dh, causal, None, 0) for s in (127, 129, 255)
+              for dh in (32, 64, 128) for causal in (True, False)]
+    cases += [(1, 100, 300, 2, 2, 128, True, None, 200),
+              (1, 300, 300, 2, 2, 64, True, 100, 0),
+              (2, 256, 256, 12, 4, 64, True, None, 0),
+              (2, 256, 256, 8, 2, 32, True, None, 0),
+              (16, 256, 256, 12, 12, 64, True, None, 0)]
+    for i, (b, sq, skv, h, kh, dh, causal, window, off) in enumerate(cases):
+        for bf16 in (False, True):
+            (_, q), (_, k), (_, v) = _qkv((b, sq, h, dh), (b, skv, kh, dh),
+                                          seed=i + 1, bf16=bf16)
+            q, k, v = q.to(dev), k.to(dev), v.to(dev)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.mha_ref(q, k, v, **kw)
+            _close(got.cpu(), want.cpu().float().numpy(),
+                   BF16_TOL if bf16 else F32_TOL)
+            if bf16:
+                assert _p_rounding_share(got, q, k, v, kw) <= 1.0
     xg, r = _slstm_inputs()
     hs, _ = slstm_scan(torch.from_numpy(xg).to(dev),
                        torch.from_numpy(r).to(dev))

@@ -32,6 +32,7 @@ from repro_torch.kernels import build, fused_adam, ref, significance, wire_pack
 from repro_torch.kernels.ops import (adam_isp_tree, adam_tree,
                                      fused_adam as fused_adam_tree,
                                      fused_adam_sig, significance_tree)
+from repro_torch.wire import codec
 
 SIZES = (1, 7, 129, 1025, 4097)
 
@@ -134,6 +135,38 @@ def test_wire_unpack_add_plain_matches_pallas_interpret(n, dtype):
     assert _bits(got) == (target + np.where(flat != 0, flat, 0)).tobytes()
 
 
+_HALF = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype,vdt", [("float16", "float16"),
+                                       ("float16", "bfloat16"),
+                                       ("bfloat16", "bfloat16"),
+                                       ("bfloat16", "float16")])
+def test_wire_unpack_half_targets_plain_matches_pallas_interpret(n, dtype,
+                                                                 vdt):
+    """B5's decode-only form into float16 and bfloat16 leaves (the values
+    in the leaf's wire type or the other half type): the plain version
+    against JAX ``wire_unpack`` in interpret mode and numpy's decode, bit
+    for bit."""
+    flat = torch.from_numpy(_sparse(n, 0.2, seed=n + 5)).to(_HALF[vdt])
+    mask = ref.packbits_le(flat != 0)
+    cvals = flat[flat != 0]
+    got = wire_pack.wire_unpack(mask, cvals, n, _HALF[dtype])
+    assert got.dtype == _HALF[dtype]
+    ncv = codec.to_numpy(cvals)
+    cap = 1 << max(ncv.size - 1, 0).bit_length()
+    cpad = np.zeros(cap, ncv.dtype)
+    cpad[: ncv.size] = ncv
+    want = jwp.wire_unpack(jnp.asarray(mask.numpy()), jnp.asarray(cpad), n=n,
+                           dtype=jnp.dtype(dtype),
+                           block_rows=jwp.pick_block_rows(n), interpret=True)
+    assert _bits(got) == np.asarray(want).tobytes()
+    numpy = np.zeros(n, codec.np_dtype(_HALF[dtype]))
+    numpy[codec.to_numpy(flat != 0)] = ncv.astype(numpy.dtype)
+    assert _bits(got) == numpy.tobytes()
+
+
 @settings(max_examples=30, deadline=None)
 @given(
     n=st.integers(1, 3000),
@@ -201,6 +234,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         wire_pack.wire_unpack_add(f.half(), torch.zeros(1, dtype=torch.uint8),
                                   f.half())
+    with pytest.raises(TypeError):  # half targets decode half values only
+        wire_pack.wire_unpack(torch.zeros(1, dtype=torch.uint8), f, 8,
+                              torch.bfloat16)
 
 
 def test_plain_versions_launch_nothing():
@@ -500,6 +536,10 @@ def test_kernels_match_plain_versions_on_the_card():
         t = torch.randn(n, device=dev)
         assert _bits(wire_pack.wire_unpack_add(t, rp[0], rp[2][:k]).cpu()) \
             == _bits(ref.wire_unpack_add_ref(t, rp[0], rp[2][:k]).cpu())
+        for tdt in (torch.float16, torch.bfloat16):  # B5 decode only
+            assert _bits(wire_pack.wire_unpack(rp[0], rp[2][:k], n, tdt)
+                         .cpu()) == _bits(ref.wire_unpack_ref(
+                             rp[0], rp[2][:k], n, tdt).cpu())
         ins = [torch.from_numpy(a).to(dev) for a in _adam_inputs((n,), n)]
         for step, v_t, scale in ((1, 0.0, 1.0), (100, 0.7, 1.0 / 3.0)):
             got = fused_adam.adam_sig_update(*ins, 1e-3, step, v_t,
