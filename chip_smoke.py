@@ -31,9 +31,12 @@ Phases (any failure exits non-zero; nothing is caught):
    64 and 128), GQA 24/8, 12/4 and 8/2, phi4-mini's prefill (B 4, S 1024)
    and lm-100m's bsp step (B 16, S 256, H 12); B8 (sLSTM scan) against
    ``ref.slstm_scan_ref`` on h and the final (c, n, h), from a zero and a
-   non-zero state, at B 2, S 16, d 64, H 2 (2e-5) and at xlstm-1.3b's
-   prefill (B 4, S 1024, d 2048, H 4; 1e-4). Tolerances: those of the JAX
-   package's own kernel tests; both sum in float32 in another order.
+   non-zero state, on both routes: the cluster route (bf16 R) at B 2, S
+   16, d 64, H 2 (2e-5) and at xlstm-1.3b's prefill width (S 1024, d
+   2048, H 4) at B 1, 3, 4 and 16 (1e-4), the cooperative route (float32
+   R) at the test shape (2e-5) and at B 4 of the prefill shape (1e-4);
+   each case's plan is logged. Tolerances: those of the JAX package's own
+   kernel tests; both sum in float32 in another order.
    The pod path's kernels: B6 (wire nnz) bit-exact at the sizes above and
    at lm-100m's pod-stacked 75,497,472 and 100,663,296 elements, float32,
    float16, bfloat16 and int32, with -0.0, a NaN, an all-zero tile and
@@ -90,7 +93,8 @@ Phases (any failure exits non-zero; nothing is caught):
    128-token prompt in 2 slots within 1e-3, and the first 4 greedy tokens
    compared (TF32 off for matmul and cuDNN).
    A profile of one prefill and 8 decode steps of each arch (device time,
-   busy share, largest kernels) says where a serving run's time goes;
+   busy share, largest kernels, B8's share) says where a serving run's
+   time goes;
 6. times — each kernel and its plain version at the main paths' shapes
    and measured density, with CUDA events, L2 cold (a 64 MiB buffer is
    rewritten before every launch) and warm, beside the bound: the bytes
@@ -100,10 +104,10 @@ Phases (any failure exits non-zero; nothing is caught):
    B3 beside ``torch._fused_adamw_`` on the same bfloat16 tensors. B7 at
    phi4-mini's prefill and at the lm-100m bsp, lm-100m isp-pod and lm-8m
    bsp attention shapes, each beside one ``scaled_dot_product_attention``
-   call (and at both query tiles, 64 and 128 rows), and B8 at
-   xlstm-1.3b's prefill, each beside the larger of its bytes over 3.35
-   TB/s and its operations over the peak rate of their type (989 TFLOP/s
-   bf16, 67 TFLOP/s float32);
+   call, and B8 at xlstm-1.3b's prefill (its plan, the clusters the card
+   holds at once, and one cluster a head against two, in turns), each
+   beside the larger of its bytes over 3.35 TB/s and its operations over
+   the peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32);
 7. step profile — one worker step's device work at ML-10M width under
    torch.profiler: device time per step beside the host time and the main
    path's steady step time (the card's busy share);
@@ -572,9 +576,11 @@ def _slstm_case(dev, gen, b, s, d, heads, r_dtype, state: bool):
 
 def check_slstm(dev) -> float:
     """B8 against ``ref.slstm_scan_ref`` on the card: h and the final
-    (c, n, h), at the test shape from a zero and a non-zero state (2e-5)
-    and at xlstm-1.3b's prefill shape (1e-4); returns the largest absolute
-    difference."""
+    (c, n, h), from a zero and a non-zero state, on both routes: at the
+    test shape (2e-5) bf16 R on the cluster route and float32 R on the
+    cooperative one; at xlstm-1.3b's prefill width (1e-4) bf16 R at B 1,
+    3, 4 and 16 (cluster) and float32 R at B 4 (cooperative). Logs each
+    case's plan; returns the largest absolute difference."""
     import torch
 
     from repro_torch.kernels import ref, slstm_scan
@@ -583,11 +589,16 @@ def check_slstm(dev) -> float:
     gen.manual_seed(8)
     cases = [(2, 16, 64, 2, dt, st, SLSTM_TOL)
              for dt in (torch.float32, torch.bfloat16) for st in (False, True)]
-    cases += [(4, 1024, 2048, 4, torch.bfloat16, st, SLSTM_TOL_FULL)
+    cases += [(b, 1024, 2048, 4, torch.bfloat16, st, SLSTM_TOL_FULL)
+              for b in (1, 3, 4, 16) for st in (False, True)]
+    cases += [(4, 1024, 2048, 4, torch.float32, st, SLSTM_TOL_FULL)
               for st in (False, True)]
     worst = 0.0
+    routes = set()
     for b, s, d, heads, rdt, st, tol in cases:
         xg, r, state = _slstm_case(dev, gen, b, s, d, heads, rdt, st)
+        p = slstm_scan.plan(b, d, heads, rdt)
+        routes.add(p.route)
         hs, final = slstm_scan.slstm_scan(xg, r, state)
         torch.cuda.synchronize(dev)
         want_hs, want_final = ref.slstm_scan_ref(xg, r, state)
@@ -598,7 +609,11 @@ def check_slstm(dev) -> float:
         worst = max(worst, err)
         log("kernel-check", kernel="slstm_scan", B=b, S=s, d=d, H=heads,
             r_dtype=str(rdt).split(".")[1], initial_state=st,
+            route=p.route, cluster=p.cluster, units=p.units, rows=p.rows,
+            kslices=p.kslices, threads=p.threads, smem=p.smem,
             max_abs_err=err, tolerance=tol)
+    require(routes == {"cluster", "cooperative"},
+            f"slstm_scan: checked routes {sorted(routes)}, not both")
     return worst
 
 
@@ -1560,7 +1575,11 @@ def profile_serve(dev) -> None:
                        and not getattr(e, "is_user_annotation", False)]
             dev_us = sum(e.self_device_time_total for e in kernels)
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+            b8_us = sum(e.self_device_time_total for e in kernels
+                        if "slstm" in e.key)
             log("serve-profile", arch=arch, phase=phase, steps=steps,
+                b8_ms_per_step=b8_us / 1e3 / steps,
+                b8_device_share=b8_us / dev_us if dev_us else 0.0,
                 wall_ms_per_step=wall * 1e3 / steps,
                 device_ms_per_step=dev_us / 1e3 / steps,
                 busy_share=dev_us / 1e6 / wall,
@@ -1637,7 +1656,10 @@ def time_flash(dev, flush) -> dict:
 
 def time_lm_kernels(dev, flush) -> dict:
     """B7 (``time_flash``), and B8 at xlstm-1.3b's prefill shape (B 4, S
-    1024, d 2048, H 4, R bf16) beside its bound."""
+    1024, d 2048, H 4, R bf16) beside its bound; B8's plan, the clusters
+    the card holds at once (``cudaOccupancyMaxActiveClusters``) and the
+    batch split: one cluster a head against two, the same tensors, in
+    turns (one, two, two, one)."""
     import torch
 
     from repro_torch.kernels import ref, slstm_scan
@@ -1654,16 +1676,35 @@ def time_lm_kernels(dev, flush) -> dict:
     def kern():
         return slstm_scan.slstm_scan(xg, r)
 
+    p = slstm_scan.plan(bd, d, heads, torch.bfloat16)
+    zeros = tuple(torch.zeros(bd, d, device=dev) for _ in range(3))
+    plans = {g: slstm_scan._cluster_plan(bd, d // heads, g) for g in (1, 2)}
+    split = {1: [], 2: []}
+    for groups in (1, 2, 2, 1):  # CUDA events: milliseconds a launch
+        split[groups].append(_time(
+            lambda q=plans[groups]: slstm_scan._launch(xg, r, zeros, q),
+            dev, 5, False, flush))
+    for groups, q in plans.items():
+        log("slstm-split", clusters_per_head=groups, rows=q.rows,
+            ctas=q.clusters(bd, heads) * q.cluster,
+            max_active_clusters=slstm_scan.max_clusters(q, d, heads,
+                                                        torch.bfloat16),
+            ms_l2warm=json.dumps(split[groups]), chosen=q == p)
     t_cold = _time(kern, dev, 10, True, flush)
     t_warm = _time(kern, dev, 10, False, flush)
     p_cold = _time(lambda: ref.slstm_scan_ref(xg, r), dev, 2, True, flush)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     bound = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log("kernel-time", kernel="slstm_scan", ms=t_cold, ms_l2warm=t_warm,
-        device_ms_l2warm=_device_ms(kern, 5), plain_ms=p_cold,
-        bound_ms=bound, bound_by=bound_by, bytes=nbytes, flops=flops,
-        bytes_ms=t_bytes * 1e3, operations_ms=t_ops * 1e3, library_ms=None,
+    dev_ms = _device_ms(kern, 5)
+    log("kernel-time", kernel="slstm_scan", route=p.route,
+        cluster=p.cluster, rows=p.rows,
+        max_active_clusters=slstm_scan.max_clusters(p, d, heads,
+                                                    torch.bfloat16),
+        ms=t_cold, ms_l2warm=t_warm, device_ms_l2warm=dev_ms,
+        plain_ms=p_cold, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+        flops=flops, bytes_ms=t_bytes * 1e3, operations_ms=t_ops * 1e3,
+        bound_share=bound / dev_ms, library_ms=None,
         library_note="no single PyTorch call does the sLSTM scan")
     out["slstm_scan"] = {"ms": t_cold, "plain_ms": p_cold,
                          "bound_ms": bound, "bound_by": bound_by,

@@ -54,7 +54,10 @@ _ARGTYPES = {
     "adam_sig_update_launch": [_P] * 10 + [_I64, _I, _I, _I, _FP, _F, _P],
     "adam_update_launch": [_P] * 7 + [_I64, _I, _I, _FP, _P],
     "flash_attention_launch": [_P, _P, _P, _P] + [_I] * 10 + [_F, _P],
-    "slstm_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
+    # ... batch, steps, d, heads, r_bf16, then the plan: route, cluster,
+    # units, rows, kslices, smem
+    "slstm_scan_launch": [_P] * 9 + [_I] * 11 + [_P],
+    "slstm_scan_max_clusters": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 

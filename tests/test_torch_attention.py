@@ -13,6 +13,8 @@ versions on the card by ``chip_smoke.py`` and the ``cuda``-marked tests.
 from __future__ import annotations
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ from repro.configs import get_smoke as jget_smoke
 from repro_torch import convert
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import slstm_scan as slstm_scan_mod
 from repro_torch.kernels.slstm_scan import slstm_scan
 from repro_torch.models import attention, params as pdefs
 
@@ -302,6 +305,220 @@ def test_slstm_from_a_state_matches_the_module_scan(r_bf16):
         _close(got, want, 2e-5)
 
 
+XLSTM_D, XLSTM_H = 2048, 4  # xlstm-1.3b's sLSTM width and heads
+
+
+def _smoke_width():
+    cfg = get_smoke("xlstm-1.3b")
+    return cfg.d_model, cfg.n_heads
+
+
+_PORT_SHAPES = [
+    (1, XLSTM_D, XLSTM_H, torch.bfloat16, "cluster"),
+    (4, XLSTM_D, XLSTM_H, torch.bfloat16, "cluster"),
+    (16, XLSTM_D, XLSTM_H, torch.bfloat16, "cluster"),
+    (2, 64, 2, torch.bfloat16, "cluster"),
+    (2, None, None, torch.bfloat16, "cluster"),  # xlstm_13b's smoke config
+    (4, XLSTM_D, XLSTM_H, torch.float32, "cooperative"),
+    (2, 64, 2, torch.float32, "cooperative"),
+]
+
+
+@pytest.mark.parametrize("batch,d,heads,r_dtype,route", _PORT_SHAPES)
+def test_slstm_plan_for_every_shape_the_port_runs(batch, d, heads, r_dtype,
+                                                  route):
+    """B8's plan: the cluster route for bf16 R (dh 512 at B 1, 4, 16, the
+    test and smoke widths), the cooperative one for float32 R; every plan
+    within one block's shared memory and 16 CTAs a cluster."""
+    if d is None:
+        d, heads = _smoke_width()
+    p = slstm_scan_mod.plan(batch, d, heads, r_dtype)
+    dh = d // heads
+    assert p.route == route and p.smem <= 232_448
+    if route == "cluster":
+        assert p.cluster <= 16 and p.cluster * p.units == dh
+        assert p.rows <= 4 and p.rows * p.clusters(batch, heads) >= batch
+        assert dh % (16 * p.kslices) == 0 and p.threads <= 512
+    else:
+        assert p.rows == batch and d // p.units <= slstm_scan_mod.SMS
+    if d == XLSTM_D and r_dtype == torch.bfloat16:
+        assert (p.cluster, p.units, p.kslices, p.threads) == (16, 32, 2, 256)
+
+
+@pytest.mark.parametrize("batch,d,heads,r_dtype", [
+    (4, 4096, 4, torch.bfloat16),  # dh 1024: R's slice fits no 16 CTAs
+    (17, XLSTM_D, XLSTM_H, torch.float32),  # past the cooperative batch
+    (2, 80, 2, torch.float32),  # dh 40: no multiple of 16 or 32
+])
+def test_slstm_plan_refuses_a_shape_no_route_takes(batch, d, heads, r_dtype):
+    with pytest.raises(ValueError):
+        slstm_scan_mod.plan(batch, d, heads, r_dtype)
+
+
+_CU = Path(slstm_scan_mod.__file__).parent / "csrc" / "slstm_scan.cu"
+
+
+def _c_expr(text: str, env: dict):
+    """A C integer expression of the kernel source, evaluated in Python
+    (casts dropped, ``/`` as integer division, one ``?:`` at the top)."""
+    text = re.sub(r"static_cast<\w+>", "", text).replace("p.", "")
+    text = text.replace("sizeof(float)", "4").replace("sizeof(TR)", "r_size")
+    text = text.replace("/", "//")
+    m = re.fullmatch(r"\s*(.+?)\s*\?\s*(.+?)\s*:\s*(.+?)\s*", text, re.S)
+    if m:
+        text = f"({m[2]}) if ({m[1]}) else ({m[3]})"
+    return eval(f"({text})", {"__builtins__": {}}, env)
+
+
+def _c_namespace(name: str) -> dict:
+    """The ``constexpr`` constants and one-line ``constexpr`` functions of
+    namespace ``name`` in ``slstm_scan.cu``, with its local ``nb``,
+    ``bpad`` and ``smem`` formulas as functions."""
+    src = _CU.read_text()
+    start = src.index(f"namespace {name} {{")
+    block = src[start:src.index(f"}}  // namespace {name}", start)]
+    env = {"kMaxSmem": int(re.search(r"kMaxSmem = (\d+);", src)[1])}
+    for const, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", block):
+        env[const] = _c_expr(expr, env)
+
+    def function(params, body):
+        names = [p.split()[-1] for p in params.split(",")]
+        return lambda *a: _c_expr(body, {**env, **dict(zip(names, a))})
+
+    for fn, params, body in re.findall(
+            r"constexpr \w+ (\w+)\(([^)]*)\)\s*\{\s*return ([^;]+);", block):
+        env[fn] = function(params, body)
+    for local in ("nb", "bpad", "smem"):
+        m = re.search(rf"const (?:int|size_t) {local} =([^;]+);", block)
+        if m:
+            env["c_" + local] = m[1]
+    return env
+
+
+@pytest.mark.parametrize("py,ns,c", [
+    ("UNITS", "clu", "kUnits"), ("MAX_ROWS", "clu", "kMaxRows"),
+    ("TILE_N", "clu", "kN"), ("TERMS", "clu", "kTerms"),
+    ("XG_RING", "clu", "kRing"), ("P_STRIDE", "clu", "kPStride"),
+    ("K_PARTS", "clu", "kParts"), ("SMEM_BYTES", "clu", "kMaxSmem"),
+    ("COOP_UNITS", "coop", "kU"), ("COOP_SPLIT", "coop", "kSplit"),
+])
+def test_slstm_plan_constants_are_the_kernels(py, ns, c):
+    """What ``plan`` assumes of the kernel's layout is what
+    ``slstm_scan.cu`` declares; a drift would otherwise show only as
+    cudaErrorInvalidValue on the card."""
+    assert getattr(slstm_scan_mod, py) == _c_namespace(ns)[c]
+
+
+@pytest.mark.parametrize("batch,d,heads,r_dtype,route", _PORT_SHAPES + [
+    (4, XLSTM_D, XLSTM_H, torch.bfloat16, "split"),  # two clusters a head
+    (3, XLSTM_D, XLSTM_H, torch.bfloat16, "split"),
+    (1, 128, 4, torch.bfloat16, "split"),
+])
+def test_slstm_plan_is_what_the_c_entry_takes(batch, d, heads, r_dtype,
+                                              route):
+    """Every plan the port makes (and the batch split ``time_lm_kernels``
+    times) passes the C entry's own checks: its shared memory is the
+    kernel source's formula, evaluated here from its text."""
+    if d is None:
+        d, heads = _smoke_width()
+    dh = d // heads
+    if route == "split":
+        p = slstm_scan_mod._cluster_plan(batch, dh, 2)
+    else:
+        p = slstm_scan_mod.plan(batch, d, heads, r_dtype)
+    if p.route == "cluster":
+        c = _c_namespace("clu")
+        assert (p.units, p.kslices, p.threads) == (
+            c["kUnits"], c["kParts"], c["kThreads"])
+        assert p.cluster * c["kUnits"] == dh and 1 <= p.rows <= c["kMaxRows"]
+        nb = _c_expr(c["c_nb"], {"rows": p.rows})
+        want = c["smem_bytes"](dh, nb, p.kslices)
+    else:
+        c = _c_namespace("coop")
+        assert (p.units, p.kslices, p.threads, p.rows) == (
+            c["kU"], c["kSplit"], c["kThreads"], batch)
+        assert dh % c["kU"] == 0 and batch <= c["kThreads"] // c["kU"]
+        bpad = _c_expr(c["c_bpad"], {**c, "batch": batch})
+        want = _c_expr(c["c_smem"], {**c, "dh": dh, "bpad": bpad,
+                                     "r_size": r_dtype.itemsize})
+    assert p.smem == want <= c["kMaxSmem"]
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _cluster_model(xg, r, state, kparts):
+    """The cluster kernel's arithmetic in numpy: h_{t-1} as three bf16
+    terms (hi = bf16(h), mid = bf16(h - hi), lo = bf16(h - hi - mid)),
+    whose products with bf16 R are exact; in each of the ``kparts`` K
+    parts of each dot product, each term's products summed exactly and
+    rounded to float32 (the tensor cores' float32 sums, modelled without
+    their rounding), then (lo + mid) + hi; the parts added in order from
+    0, and xg added last."""
+    b, s, four_d = xg.shape
+    d = four_d // 4
+    hh, dh, _ = r.shape
+    c, n, h = (a.copy() for a in state)
+    kl = dh // kparts
+    out = np.zeros((b, s, d), np.float32)
+    for t in range(s):
+        hi = _bf16(h)
+        mid = _bf16(h - hi)
+        lo = _bf16(h - hi - mid)
+        rh = np.zeros((b, hh, 4 * dh), np.float32)
+        for head in range(hh):
+            cols = slice(head * dh, (head + 1) * dh)
+            total = np.zeros((b, 4 * dh), np.float32)
+            for q in range(kparts):
+                ks = slice(q * kl, (q + 1) * kl)
+                rq = r[head][ks].astype(np.float64)
+                hi_s, mid_s, lo_s = ((term[:, cols][:, ks] @ rq).astype(
+                    np.float32) for term in (hi, mid, lo))
+                total = total + ((lo_s + mid_s) + hi_s)
+            rh[:, head] = total
+        g = xg[:, t] + rh.reshape(b, hh, 4, dh).transpose(0, 2, 1, 3).reshape(
+            b, 4 * d)
+        ig = np.exp(np.minimum(g[:, :d], np.float32(8)))
+        fg = np.float32(1) / (np.float32(1) + np.exp(-g[:, d:2 * d]))
+        zg = np.tanh(g[:, 2 * d:3 * d])
+        og = np.float32(1) / (np.float32(1) + np.exp(-g[:, 3 * d:]))
+        c = fg * c + ig * zg
+        n = fg * n + ig
+        h = og * (c / np.maximum(np.abs(n), np.float32(1)))
+        out[:, t] = h
+    return out, (c, n, h)
+
+
+@pytest.mark.parametrize("b,s,d,hh", [
+    (2, 16, 64, 2),  # dh 32: 2 K parts of one tile
+    (3, 8, 256, 2),  # dh 128: 4 K parts of two tiles
+])
+def test_slstm_cluster_summation_order_matches_ref_and_pallas(b, s, d, hh):
+    """A numpy model of the cluster kernel's order of summation (bf16 R),
+    from zero and from a non-zero state, against ``ref.slstm_scan_ref``
+    and (from zero) the Pallas kernel in interpret mode, at 2e-5."""
+    xg, r = _slstm_inputs(b, s, d, hh, seed=5)
+    r = _bf16(r)
+    p = slstm_scan_mod.plan(b, d, hh, torch.bfloat16)
+    assert p.route == "cluster"
+    zero = [np.zeros((b, d), np.float32) for _ in range(3)]
+    state = [_np((b, d), 20 + i) for i in range(3)]
+    state[1] = np.abs(state[1]) + 1.0
+    pallas = jslstm_scan(jnp.asarray(xg), jnp.asarray(r), n_heads=hh,
+                         block_t=s, interpret=True)
+    for st in (zero, state):
+        got, final = _cluster_model(xg, r, st, p.kslices)
+        want, want_final = ref.slstm_scan_ref(
+            torch.from_numpy(xg), torch.from_numpy(r),
+            tuple(torch.from_numpy(a) for a in st))
+        _close(torch.from_numpy(got), want.numpy(), 2e-5)
+        for g, w in zip(final, want_final):
+            _close(torch.from_numpy(g), w.numpy(), 2e-5)
+        if st is zero:
+            _close(torch.from_numpy(got), pallas, 2e-5)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 8, 3, 64)
     with pytest.raises(ValueError):  # 3 query heads over 2 KV heads
@@ -341,7 +558,8 @@ def test_kernels_match_their_plain_versions_on_the_card():
             if bf16:
                 assert _p_rounding_share(got, q, k, v, kw) <= 1.0
     xg, r = _slstm_inputs()
-    hs, _ = slstm_scan(torch.from_numpy(xg).to(dev),
-                       torch.from_numpy(r).to(dev))
-    want, _ = ref.slstm_scan_ref(torch.from_numpy(xg), torch.from_numpy(r))
-    _close(hs.cpu(), want.numpy(), 2e-5)
+    for rdt in (torch.float32, torch.bfloat16):  # both B8 routes
+        tr = torch.from_numpy(r).to(rdt)
+        hs, _ = slstm_scan(torch.from_numpy(xg).to(dev), tr.to(dev))
+        want, _ = ref.slstm_scan_ref(torch.from_numpy(xg), tr)
+        _close(hs.cpu(), want.numpy(), 2e-5)
