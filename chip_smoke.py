@@ -16,15 +16,23 @@ Phases (any failure exits non-zero; nothing is caught):
    n in {1, 7, 13, 127, 1000003, 213620, 1431340}, with -0.0 and all-zero
    tiles in the inputs; B4 at float32, fp16 and bf16, B5 on float32 and
    int32 targets and, decode only, on float16 and bfloat16 targets from
-   fp16 and bf16 values. B2 (fused Adam + filter) and B3 (fused Adam) at
-   the same n and at 0-d, steps 1 and 100, in every combination of float32 and
-   bfloat16 storage (B2: p/g, moments, residual; B3: p/g, moments); B2 at
-   v_t in {0, 0.7} (float32 also at scale 1/3), B3 at weight decay in
-   {0, 0.1}; and both at lm-100m's largest leaves (18,874,368 and
-   25,165,824 elements) in the bsp/isp steps' types: B2 on bfloat16
-   leaves, B3 with bfloat16 moments and p in float32 and bfloat16.
-   Tolerance: bit-identical. B7 (flash attention) against
-   ``ref.mha_ref`` at float32 (2e-5) and bfloat16 (2e-2) over Dh 64 / 128
+   fp16 and bf16 values. Then B4 and B5 under repetition (the look-back's
+   races show only so): at those n, one tile - 1, one tile and one tile +
+   1 (the tile read from ``kernels.wire_pack.TILE``) and 16,777,223 (4,097
+   tiles), densities 0, 0.05 and 1.0 with NaN and -0.0 among the values,
+   B4 in its eight type pairs, B5 adding into float32 and int32 targets
+   and decoding only into float32, int32, float16 and bfloat16 leaves,
+   with all values and with three fewer than the set bits (the gather
+   clamps to the last value), each case 50 times in a row. B2 (fused
+   Adam + filter) and B3 (fused Adam) at the same n and at 0-d, steps 1
+   and 100, in every combination of float32 and bfloat16 storage (B2:
+   p/g, moments, residual; B3: p/g, moments); B2 at v_t in {0, 0.7}
+   (float32 also at scale 1/3), B3 at weight decay in {0, 0.1}; and
+   both at lm-100m's largest leaves (18,874,368 and 25,165,824 elements)
+   in the bsp/isp steps' types: B2 on bfloat16 leaves, B3 with bfloat16
+   moments and p in float32 and bfloat16. Tolerance: bit-identical.
+   B7 (flash attention) against ``ref.mha_ref`` at float32 (2e-5) and
+   bfloat16 (2e-2) over Dh 64 / 128
    / 256, causal and not, windows 64, 100 and 128, q_offsets (Sq 128
    against Skv 384 at 256, Sq 100 against Skv 300 at 200), ragged lengths
    (127, 129, 200, 255, 333, 1000; the tensor-core tile edges at Dh 32,
@@ -101,7 +109,9 @@ Phases (any failure exits non-zero; nothing is caught):
    the function must move over 3.35 TB/s; for B3 also one
    ``torch._fused_adamw_`` call on the same float32 tensors; B3 and B2
    again at lm-100m's FF leaf with every operand bfloat16 (B3's row),
-   B3 beside ``torch._fused_adamw_`` on the same bfloat16 tensors. B7 at
+   B3 beside ``torch._fused_adamw_`` on the same bfloat16 tensors. B4 and
+   B5 (and B5's decode-only form) must issue exactly one device operation
+   a call (profiler counts: no memset, no second kernel). B7 at
    phi4-mini's prefill and at the lm-100m bsp, lm-100m isp-pod and lm-8m
    bsp attention shapes, each beside one ``scaled_dot_product_attention``
    call, and B8 at xlstm-1.3b's prefill (its plan, the clusters the card
@@ -109,8 +119,8 @@ Phases (any failure exits non-zero; nothing is caught):
    beside the larger of its bytes over 3.35 TB/s and its operations over
    the peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32);
 7. step profile — one worker step's device work at ML-10M width under
-   torch.profiler: device time per step beside the host time and the main
-   path's steady step time (the card's busy share);
+   torch.profiler: device time and device operations per step beside the
+   host time and the main path's steady step time (the card's busy share);
 8. summary — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 """
@@ -131,6 +141,13 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SIZES = (1, 7, 13, 127, 1000003, 213620, 1431340)
+# B4 and B5 under repetition (a race in the look-back shows only so): every
+# encode type pair and every decode route, at SIZES, one tile - 1, one tile
+# and one tile + 1, and a leaf of 4,097 tiles, at three densities with NaN
+# and -0.0 among the values
+WIRE_REPEATS = 50
+WIRE_DENSITIES = (0.0, 0.05, 1.0)
+WIRE_LONG = (1 << 24) + 7
 ML10M = {"n_users": 10681, "n_movies": 71567, "n_ratings": 400000,
          "rank": 20, "batch_size": 256}
 CRITEO = {"n_samples": 200000, "batch_size": 256}
@@ -343,6 +360,102 @@ def check_kernels(dev) -> dict:
             **(adam if k.startswith("adam")
                else {"sizes": ",".join(map(str, SIZES))}))
     return err
+
+
+def _wire_leaf(n: int, density: float, seed: int):
+    """float32 with about ``density`` of it significant, -0.0 (not
+    significant) at every 13th element and, where anything is significant,
+    NaN (significant) at every 997th."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(n).astype(np.float32)
+    a[rng.random(n) >= density] = 0.0
+    a[5::13] = -0.0
+    if density > 0:
+        a[3::997] = np.nan
+    return torch.from_numpy(a)
+
+
+def _differs(a, b):
+    """A 0-d bool on the card: do a and b differ in any bit (shapes and
+    types are checked here, the bits without a sync)."""
+    import torch
+
+    require(a.shape == b.shape and a.dtype == b.dtype,
+            f"{a.shape} {a.dtype} against {b.shape} {b.dtype}")
+    return torch.ne(_bits(a), _bits(b)).any()
+
+
+def check_wire_stress(dev) -> dict:
+    """B4 and B5, each case called WIRE_REPEATS times in a row, every
+    result bit-equal to the plain version on the same inputs: B4 in its
+    eight type pairs, B5 adding into float32 and int32 targets and decoding
+    only into float32, int32, float16 and bfloat16 leaves, with all values
+    and with three fewer than the set bits (the gather clamps)."""
+    import torch
+
+    from repro_torch.kernels import ref, wire_pack
+
+    f32, f16, bf16, i32 = (torch.float32, torch.float16, torch.bfloat16,
+                           torch.int32)
+    pairs = ((f32, f32), (f32, f16), (f32, bf16), (f16, f16), (f16, bf16),
+             (bf16, f16), (bf16, bf16), (i32, i32))
+    sizes = SIZES + (wire_pack.TILE - 1, wire_pack.TILE, wire_pack.TILE + 1,
+                     WIRE_LONG)
+    calls = {"wire_pack": 0, "wire_unpack_add": 0, "wire_unpack": 0}
+    for n in sizes:
+        for density in WIRE_DENSITIES:
+            x32 = _wire_leaf(n, density, seed=n).to(dev)
+            tgt = _wire_leaf(n, 1.0, seed=n + 1).to(dev)
+            tgt = torch.nan_to_num(tgt, nan=-0.0)
+            for tin, tout in pairs:
+                x = (torch.nan_to_num(x32 * 1000, nan=7.0).to(i32)
+                     if tin == i32 else x32.to(tin))
+                want = ref.wire_pack_ref(x, tout)
+                k = int(want[4])
+                what = f"{tin}->{tout} n={n} density={density}"
+                bad = torch.zeros((), dtype=torch.bool, device=dev)
+                for _ in range(WIRE_REPEATS):
+                    got = wire_pack.wire_pack(x, tout)
+                    for j, (g, w) in enumerate(zip(got, want)):
+                        if j in (2, 3):
+                            g, w = g[:k], w[:k]
+                        bad |= _differs(g, w)
+                calls["wire_pack"] += WIRE_REPEATS
+                require(not bool(bad), f"wire_pack {what} differs")
+                if tin not in (f32, i32):
+                    continue  # B5's inputs depend on the wire type only
+                mask = want[0]
+                t = (torch.nan_to_num(tgt * 1000, nan=0.0).to(i32)
+                     if tout == i32 else tgt)
+                decode = [f32] if tout == f32 else (
+                    [i32] if tout == i32 else [f32, f16, bf16])
+                for cv in (want[2][:k], want[2][:max(k - 3, 0)]):
+                    cases = [("wire_unpack_add",
+                              lambda: wire_pack.wire_unpack_add(t, mask, cv),
+                              ref.wire_unpack_add_ref(t, mask, cv))]
+                    for tdt in decode:
+                        cases.append((
+                            "wire_unpack",
+                            lambda tdt=tdt: wire_pack.wire_unpack(
+                                mask, cv, n, tdt),
+                            ref.wire_unpack_ref(mask, cv, n, tdt)))
+                    for name, kern, w in cases:
+                        bad = torch.zeros((), dtype=torch.bool, device=dev)
+                        for _ in range(WIRE_REPEATS):
+                            bad |= _differs(kern(), w)
+                        calls[name] += WIRE_REPEATS
+                        require(not bool(bad), f"{name} {what} values "
+                                f"{cv.numel()} of {k} differs")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # a fault during a kernel surfaces here
+    log("wire-stress", sizes=",".join(map(str, sizes)),
+        densities=",".join(map(str, WIRE_DENSITIES)),
+        repeats=WIRE_REPEATS, calls=json.dumps(calls), tile=wire_pack.TILE,
+        long_leaf_tiles=wire_pack.tiles(WIRE_LONG))
+    return calls
 
 
 def _adam_inputs(shape, seed: int):
@@ -1734,26 +1847,52 @@ def _time(fn, dev, reps: int, cold: bool, flush) -> float:
     return total / reps
 
 
-def _device_ms(fn, reps: int = 20) -> float:
+def _device_profile(fn, reps: int = 20) -> tuple:
     """Device milliseconds per call from torch.profiler (L2 warm): the
     kernels' own time, without the wrapper's host work that CUDA events
-    around an idle card's single call also count."""
+    around an idle card's single call also count; and the device
+    operations (kernels, memsets, copies) per call."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    # a warm-up step before the counted one: the tracer has been seen to
+    # miss the first launches of a window
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count]
     # each kernel's mean time times its launches per call, so that records
     # the profiler drops do not shrink the result (seen once for B7)
     us = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.count)
-    return us / 1e3
+             for e in events)
+    return us / 1e3, sum(e.count for e in events) / reps
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    return _device_profile(fn, reps)[0]
+
+
+def _single_launch(name: str, fn) -> tuple:
+    """``_device_profile`` of a wrapper that must issue exactly one device
+    operation a call (no memset, no second kernel). A record the tracer
+    drops reads as fewer than one, so a reading below one is taken again,
+    at most twice; more than one fails at once."""
+    for attempt in range(3):
+        device_ms, per_call = _device_profile(fn)
+        if per_call >= 1:
+            break
+    require(per_call == 1, f"{name}: {per_call} device operations a call, "
+            f"not 1 ({attempt + 1} readings)")
+    return device_ms, per_call
 
 
 def profile_step(dev, steady_step_s: float, reps: int = 5) -> None:
@@ -1813,6 +1952,7 @@ def profile_step(dev, steady_step_s: float, reps: int = 5) -> None:
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     dev_us = sum(e.self_device_time_total for e in kernels) / reps
+    launches = sum(e.count for e in kernels) / reps
     torch.use_deterministic_algorithms(False)
     if dev_us <= 0:
         log("step-profile", device_ms_per_step="not measured",
@@ -1820,7 +1960,7 @@ def profile_step(dev, steady_step_s: float, reps: int = 5) -> None:
         return
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     log("step-profile", device_ms_per_step=dev_us / 1e3,
-        host_ms_per_step=wall * 1e3,
+        device_launches_per_step=launches, host_ms_per_step=wall * 1e3,
         busy_share_of_host_step=dev_us / 1e6 / wall,
         busy_share_of_steady_worker_step=dev_us / 1e6 / steady_step_s,
         kernels=len(kernels),
@@ -1871,13 +2011,32 @@ def time_kernels(dev, density: float) -> dict:
         bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / FP32_FLOPS else "operations")
+        if name == "significance_filter":
+            device_ms, per_call = _device_profile(kern)
+        else:  # B4, B5: one single-pass launch
+            device_ms, per_call = _single_launch(name, kern)
         log("kernel-time", kernel=name, n=n, nnz=nnz, ms=t_cold,
-            ms_l2warm=t_warm, device_ms_l2warm=_device_ms(kern),
-            plain_ms=p_cold, bound_ms=bound,
+            ms_l2warm=t_warm, device_ms_l2warm=device_ms,
+            launches_per_call=per_call, plain_ms=p_cold, bound_ms=bound,
             bound_by=bound_by, bytes=nbytes, library_ms=None,
             library_note="no single PyTorch call computes this function")
         out[name] = {"ms": t_cold, "plain_ms": p_cold, "bound_ms": bound,
                      "bound_by": bound_by, "library_ms": None}
+    # B5's decode-only form at the same leaf: the codec's decode into a
+    # float32 leaf, and into a bf16 leaf from bf16 values
+    half = cvals.to(torch.bfloat16)
+    for label, kern, nbytes in (
+            ("float32", lambda: wire_pack.wire_unpack(mask, cvals, n,
+                                                      torch.float32),
+             (n + 7) // 8 + 4 * nnz + 4 * n),
+            ("bfloat16", lambda: wire_pack.wire_unpack(mask, half, n,
+                                                       torch.bfloat16),
+             (n + 7) // 8 + 2 * nnz + 2 * n)):
+        device_ms, per_call = _single_launch(f"wire_unpack {label}", kern)
+        log("kernel-time", kernel="wire_unpack", target=label, n=n, nnz=nnz,
+            ms_l2warm=_time(kern, dev, 50, False, flush),
+            device_ms_l2warm=device_ms, launches_per_call=per_call,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
     out.update(time_adam(dev, flush))
     out.update(time_lm_kernels(dev, flush))
     out.update(time_pod_kernels(dev, flush))
@@ -2125,26 +2284,37 @@ def main() -> int:
     require(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
             "flash_attention: no wgmma or no TMA load in its SASS")
 
+    def done(phase: str) -> None:  # the script's clock against its limit
+        log("phase", done=phase, seconds=round(time.perf_counter() - t0, 1))
+
     err = check_kernels(dev)
+    check_wire_stress(dev)
     check_pod_kernels(dev, err)
     check_reintegration(dev)
     err["flash_attention"] = max(check_flash(dev),
                                  check_attention_grads(dev))
     err["slstm_scan"] = check_slstm(dev)
+    done("bit-exactness")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         runs = main_path(tmp)
+        done("main paths")
         pods = pod_paths(tmp)
         flats = flat_paths(tmp)
+        done("in-process legs")
         invariants(tmp, runs)
+        done("invariants")
         served = serve_paths(tmp)
+        done("serving")
     pod_in_process(dev)
     flat_in_process(dev)
     train_card_vs_cpu(dev)
     card_vs_cpu(dev)
     profile_serve(dev)
+    done("profiles and references")
     sent = [r["sent_fraction"] for r in runs["pmf_bitmap"][1]["history"]]
     times = time_kernels(dev, density=sum(sent) / len(sent))
     profile_step(dev, steady(runs["pmf_bitmap"][1], 5)["step_s"])
+    done("times")
 
     # launches: every main-path leg and serving run, each counted from 0
     # in fresh processes

@@ -42,6 +42,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)  # a host scalar block
 # C signatures: every pointer and the stream as c_void_p, never a bare int
@@ -49,8 +50,11 @@ _ARGTYPES = {
     "significance_filter_launch": [_P, _P, _P, _P, _P, _I64, _I, _I, _F, _F,
                                    _P],
     "wire_nnz_launch": [_P, _I, _I64, _P, _P],
-    "wire_pack_launch": [_P, _I, _I, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "wire_unpack_add_launch": [_P, _I, _P, _I64, _P, _I, _P, _P, _P, _P, _I, _P],
+    # ... the look-back buffer, the call's sequence number, the stream
+    "wire_pack_launch": [_P, _I, _I, _I64, _P, _P, _P, _P, _P, _P, _P, _U,
+                         _P],
+    "wire_unpack_add_launch": [_P, _I, _P, _I64, _P, _I64, _I, _P, _I, _P, _U,
+                               _P],
     "adam_sig_update_launch": [_P] * 10 + [_I64, _I, _I, _I, _FP, _F, _P],
     "adam_update_launch": [_P] * 7 + [_I64, _I, _I, _FP, _P],
     "flash_attention_launch": [_P, _P, _P, _P] + [_I] * 10 + [_F, _P],
@@ -129,8 +133,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_ptr(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``, as the kernels take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device``, as the kernels take it: the
+    raw handle, read without building a ``torch.cuda.Stream`` object, which
+    costs about as much host time as the launch itself."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(code: int, kernel: str) -> None:

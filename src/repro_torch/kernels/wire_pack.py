@@ -9,11 +9,18 @@ error-feedback residual; decode reads the mask and the compacted values
 and adds them into the target; the hit count reads a leaf once and writes
 one int32. All passes stream, so the card's memory rate bounds them.
 
+Encode and decode are one launch each: a single-pass compaction whose
+tiles find their offsets by decoupled look-back through a buffer of
+status words kept here per (device, stream) (``Lookback``), zeroed once
+when it is made or grows, never per call.
+
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version in ``kernels.ref``.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -25,15 +32,63 @@ NNZ = "wire_nnz"
 
 CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
          torch.int32: 3}
-_THREADS = 256  # elements per block in the kernels
+
+# the B4/B5 tile of csrc/wire_pack.cu (its constexprs of the same names)
+THREADS = 256  # kThreads
+ITEMS = 16  # kItems: elements a thread
+TILE = THREADS * ITEMS  # kTile: elements a block
+STATUS_BASE = 1  # kStatusBase: word 0 is the ticket counter
+SEQ_SHIFT = 32  # kSeqShift: a status word is (seq << 32) | flag | count
+INCLUSIVE = 1 << 31  # kInclusive: the word's count is a prefix
+MAX_ELEMENTS = 2**31 - 1  # kMaxElements: counts fit 31 bits
+SEQ_LIMIT = 2**32 - 1  # the last sequence number a buffer takes
 
 
-def _scratch(n: int, device: torch.device):
-    nb = max((n + _THREADS - 1) // _THREADS, 1)
-    counts = torch.empty(nb, dtype=torch.int32, device=device)
-    offsets = torch.empty(nb, dtype=torch.int32, device=device)
-    total = torch.empty((), dtype=torch.int32, device=device)
-    return counts, offsets, total
+def tiles(n: int) -> int:
+    """Blocks (tiles) of one B4 or B5 call on ``n`` elements."""
+    return -(-n // TILE)
+
+
+class Lookback:
+    """The look-back buffers of B4 and B5, one per (device, stream): int64
+    words, the ticket counter then one status word a tile, zeroed when a
+    buffer is made or grows (doubling) and never reset per call. Each call
+    takes the buffer's next sequence number (1, 2, ...); after
+    ``SEQ_LIMIT`` the next call gets a fresh zeroed buffer, and every new
+    buffer starts again at 1. Calls on one stream run in order, so they
+    share a buffer; the kernel sets the counter back to 0 itself."""
+
+    def __init__(self):
+        self._bufs: dict = {}
+        self._lock = threading.Lock()
+
+    def take(self, device: torch.device, stream: int, ntiles: int):
+        """``(words, seq)`` for one call of ``ntiles`` tiles."""
+        key = (str(device), stream)
+        with self._lock:
+            words, seq = self._bufs.get(key, (None, 0))
+            need = STATUS_BASE + ntiles
+            if words is None or words.numel() < need or seq >= SEQ_LIMIT:
+                size = need if words is None else max(need, 2 * words.numel())
+                words, seq = torch.zeros(size, dtype=torch.int64,
+                                         device=device), 0
+            seq += 1
+            self._bufs[key] = (words, seq)
+            return words, seq
+
+
+LOOKBACK = Lookback()
+
+
+def _lookback(dev: torch.device, n: int, kernel: str):
+    if n > MAX_ELEMENTS:
+        raise ValueError(f"{kernel}: {n} elements, at most {MAX_ELEMENTS}")
+    if torch.cuda.is_current_stream_capturing():
+        # a captured call would replay its sequence number
+        raise RuntimeError(f"{kernel}: cannot be captured in a CUDA graph")
+    stream = build.stream_ptr(dev)
+    words, seq = LOOKBACK.take(dev, stream, tiles(n))
+    return words, seq, stream
 
 
 def wire_pack(flat: torch.Tensor, vdt: torch.dtype):
@@ -61,13 +116,14 @@ def wire_pack(flat: torch.Tensor, vdt: torch.dtype):
     cvals = torch.empty(n, dtype=vdt, device=dev)
     cidx = torch.empty(n, dtype=torch.int32, device=dev)
     residual = torch.empty(n, dtype=torch.float32, device=dev)
-    counts, offsets, nnz = _scratch(n, dev)
+    nnz = torch.empty((), dtype=torch.int32, device=dev)
+    words, seq, stream = _lookback(dev, n, PACK)
     lib = build.load("wire_pack")
     build.check(lib.wire_pack_launch(
         flat.data_ptr(), CODES[flat.dtype], CODES[vdt], n, mask.data_ptr(),
         qdense.data_ptr(), cvals.data_ptr(), cidx.data_ptr(),
-        residual.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-        nnz.data_ptr(), build.stream_ptr(dev)), PACK)
+        residual.data_ptr(), nnz.data_ptr(), words.data_ptr(), seq,
+        stream), PACK)
     build.LAUNCHES[PACK] += 1
     return mask, qdense, cvals, cidx, nnz, residual
 
@@ -83,15 +139,13 @@ def _unpack(target, mask_bytes, cvals, n, dtype, accumulate):
         build.require_cuda(target, f"{UNPACK_ADD} target")
         if target.device != dev:
             raise ValueError(f"{UNPACK_ADD}: target on {target.device}")
-    if cvals.numel() == 0:  # nothing on the support: one dummy slot
-        cvals = torch.zeros(1, dtype=cvals.dtype, device=dev)
-    counts, offsets, total = _scratch(n, dev)
+    words, seq, stream = _lookback(dev, n, UNPACK_ADD)
     lib = build.load("wire_pack")
     build.check(lib.wire_unpack_add_launch(
         (target if accumulate else out).data_ptr(), CODES[dtype],
-        mask_bytes.data_ptr(), n, cvals.data_ptr(), CODES[cvals.dtype],
-        counts.data_ptr(), offsets.data_ptr(), total.data_ptr(),
-        out.data_ptr(), int(accumulate), build.stream_ptr(dev)), UNPACK_ADD)
+        mask_bytes.data_ptr(), n, cvals.data_ptr(), cvals.numel(),
+        CODES[cvals.dtype], out.data_ptr(), int(accumulate),
+        words.data_ptr(), seq, stream), UNPACK_ADD)
     build.LAUNCHES[UNPACK_ADD] += 1
     return out
 
@@ -115,8 +169,11 @@ def wire_unpack_add(
     target: torch.Tensor, mask_bytes: torch.Tensor, cvals: torch.Tensor
 ) -> torch.Tensor:
     """``target + decode(mask_bytes, cvals)`` for a flat float32 or int32
-    target; ``cvals`` holds at least the ``nnz`` significant values in
-    flat order. Every element gets an add, ``+0`` off the support."""
+    target; ``cvals`` holds the ``nnz`` significant values in flat order.
+    Every element gets an add, ``+0`` off the support. With fewer values
+    than set bits, a position past the last value reads the last value
+    (and no values read as zeros), as JAX's gather clamps to the values'
+    capacity."""
     if target.dim() != 1 or target.numel() < 1:
         raise ValueError(f"{UNPACK_ADD}: expects a non-empty 1-D target")
     _check_unpack(mask_bytes, cvals, target.numel(), target.dtype, True)

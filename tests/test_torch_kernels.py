@@ -13,6 +13,9 @@ themselves are compared with their plain versions on the card by
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -135,6 +138,45 @@ def test_wire_unpack_add_plain_matches_pallas_interpret(n, dtype):
     assert _bits(got) == (target + np.where(flat != 0, flat, 0)).tobytes()
 
 
+@pytest.mark.parametrize("n", (7, 1000, 4097))
+@pytest.mark.parametrize("density", (0.05, 1.0))
+@pytest.mark.parametrize("short", (1, 3, "empty"))
+def test_wire_unpack_short_values_plain_matches_pallas_interpret(n, density,
+                                                                 short):
+    """With fewer values than set mask bits, each gather position is
+    clamped to the last value, as JAX's ``wire_unpack_add`` clamps it to
+    the values' capacity: the plain ``wire_unpack_add`` and
+    ``wire_unpack`` against JAX in interpret mode, bit for bit. JAX
+    refuses to gather from an empty array; the port reads no values as
+    one zero slot, which is what JAX is given then."""
+    flat = _sparse(n, density, seed=n + 11)
+    target = _sparse(n, 1.0, seed=n + 12)
+    target[::4] = -0.0
+    mask = np.packbits(flat != 0, bitorder="little")
+    support = flat[flat != 0]
+    cvals = support[:0] if short == "empty" else \
+        support[:max(support.size - short, 0)]
+    jvals = cvals if cvals.size else np.zeros(1, np.float32)
+    got = wire_pack.wire_unpack_add(torch.from_numpy(target),
+                                    torch.from_numpy(mask),
+                                    torch.from_numpy(cvals))
+    want = jwp.wire_unpack_add(jnp.asarray(target), jnp.asarray(mask),
+                               jnp.asarray(jvals),
+                               block_rows=jwp.pick_block_rows(n),
+                               interpret=True)
+    assert _bits(got) == np.asarray(want).tobytes()
+    got = wire_pack.wire_unpack(torch.from_numpy(mask),
+                                torch.from_numpy(cvals), n, torch.float32)
+    want = jwp.wire_unpack(jnp.asarray(mask), jnp.asarray(jvals), n=n,
+                           dtype=jnp.float32,
+                           block_rows=jwp.pick_block_rows(n), interpret=True)
+    assert _bits(got) == np.asarray(want).tobytes()
+    bits = flat != 0
+    pos = np.clip(np.cumsum(bits) - 1, 0, jvals.size - 1)
+    assert _bits(got) == np.where(bits, jvals[pos], 0).astype(
+        np.float32).tobytes()
+
+
 _HALF = {"float16": torch.float16, "bfloat16": torch.bfloat16}
 
 
@@ -248,6 +290,120 @@ def test_plain_versions_launch_nothing():
     fused_adam.adam_sig_update(u, x, r, r.abs(), sig, 1e-3, 1, 0.3)
     fused_adam.adam_update(u, x, r, r.abs(), 1e-3, 1)
     assert sum(build.LAUNCHES.values()) == 0
+
+
+_WIRE_CU = Path(wire_pack.__file__).parent / "csrc" / "wire_pack.cu"
+
+
+def _wire_constants() -> dict:
+    """The ``constexpr`` integers of ``csrc/wire_pack.cu``, evaluated in
+    order (``ull`` suffixes dropped, ``/`` as integer division)."""
+    env: dict = {}
+    for name, expr in re.findall(
+            r"constexpr (?:int|int64_t|uint64_t|unsigned) (k\w+) = ([^;]+);",
+            _WIRE_CU.read_text()):
+        expr = re.sub(r"\b(0x[0-9a-f]+|\d+)(?:ull|u)\b", r"\1", expr)
+        expr = expr.replace("/", "//")
+        env[name] = eval(expr, {"__builtins__": {}}, dict(env))
+    return env
+
+
+@pytest.mark.parametrize("py,c", [
+    ("THREADS", "kThreads"), ("ITEMS", "kItems"), ("TILE", "kTile"),
+    ("STATUS_BASE", "kStatusBase"), ("SEQ_SHIFT", "kSeqShift"),
+    ("INCLUSIVE", "kInclusive"), ("MAX_ELEMENTS", "kMaxElements"),
+])
+def test_wire_lookback_constants_are_the_kernels(py, c):
+    """What the wrapper assumes of B4's and B5's tile and status words (it
+    sizes the look-back buffer from them) is what ``wire_pack.cu``
+    declares; a drift would show only as a hang or a wrong offset on the
+    card."""
+    assert getattr(wire_pack, py) == _wire_constants()[c]
+
+
+def test_wire_status_word_holds_every_count():
+    """A status word is (seq << 32) | flag | count: the largest count and
+    the largest sequence number fit beside the flag, in 64 bits."""
+    c = _wire_constants()
+    assert c["kCountMask"] == wire_pack.INCLUSIVE - 1 >= wire_pack.MAX_ELEMENTS
+    assert wire_pack.INCLUSIVE << 1 == 1 << wire_pack.SEQ_SHIFT
+    word = (wire_pack.SEQ_LIMIT << wire_pack.SEQ_SHIFT) | wire_pack.INCLUSIVE \
+        | wire_pack.MAX_ELEMENTS
+    assert word < 2**64 and word >> wire_pack.SEQ_SHIFT == wire_pack.SEQ_LIMIT
+    assert wire_pack.tiles(wire_pack.MAX_ELEMENTS) < 2**32
+
+
+def test_wire_lookback_buffer_is_kept_per_stream_and_never_reset_per_call():
+    """The look-back buffer of one (device, stream) is reused across calls
+    and sizes and grows (zeroed) when a call needs more tiles; each call
+    gets the buffer's next sequence number, and a new buffer (made, grown,
+    or after the last number) starts again at 1; another stream has its
+    own."""
+    lb = wire_pack.Lookback()
+    cpu = torch.device("cpu")
+    words, seq = lb.take(cpu, 7, wire_pack.tiles(1))
+    assert (words.numel(), seq) == (wire_pack.STATUS_BASE + 1, 1)
+    assert words.dtype == torch.int64 and not words.any()
+    words[:] = 5  # what calls leave behind is never cleared
+    again, seq = lb.take(cpu, 7, 1)
+    assert again.data_ptr() == words.data_ptr() and seq == 2
+    n = 3 * wire_pack.TILE + 1
+    grown, seq = lb.take(cpu, 7, wire_pack.tiles(n))
+    assert seq == 1 and not grown.any()  # a new buffer starts again at 1
+    assert grown.numel() == max(wire_pack.STATUS_BASE + 4, 2 * words.numel())
+    small, seq = lb.take(cpu, 7, 1)
+    assert small.data_ptr() == grown.data_ptr() and seq == 2
+    other, seq = lb.take(cpu, 8, 1)
+    assert other.data_ptr() != grown.data_ptr() and seq == 1
+    lb._bufs[(str(cpu), 7)] = (grown, wire_pack.SEQ_LIMIT - 1)
+    last, seq = lb.take(cpu, 7, 1)
+    assert last.data_ptr() == grown.data_ptr() and seq == wire_pack.SEQ_LIMIT
+    grown[:] = 9
+    fresh, seq = lb.take(cpu, 7, 1)
+    assert seq == 1 and not fresh.any()
+
+
+@pytest.mark.parametrize("n", (1, 7, 129, 4095, 4096, 4097, 3 * 4096 + 5))
+@pytest.mark.parametrize("density", (0.0, 0.05, 1.0))
+def test_wire_tile_layout_model(n, density):
+    """A numpy model of B4's and B5's index arithmetic, with the kernel's
+    constants: a tile's (warp, run, lane, element) order is flat order, so
+    in-tile prefixes plus tile offsets are the flat cumsum; B5's nibble of
+    a mask byte is the lane's flags (none past n), and B4's OR of 8 lanes'
+    nibbles is the packed mask word, zero tail bits included."""
+    c = _wire_constants()
+    assert c["kWarps"] * c["kWarpSpan"] == c["kTile"]
+    assert c["kRuns"] * c["kRun"] == c["kWarpSpan"]
+    assert c["kRun"] == 32 * c["kGroup"] and c["kGroup"] * 2 == 8
+    nt = wire_pack.tiles(n)
+    tile, warp, run, lane = np.meshgrid(
+        np.arange(nt), np.arange(c["kWarps"]), np.arange(c["kRuns"]),
+        np.arange(32), indexing="ij")
+    g = tile * c["kTile"] + warp * c["kWarpSpan"] + c["kGroup"] * lane \
+        + run * c["kRun"]
+    elems = (g[..., None] + np.arange(c["kGroup"])).reshape(-1)
+    assert np.array_equal(elems, np.arange(nt * c["kTile"]))
+    rng = np.random.default_rng(n)
+    bits = rng.random(n) < density
+    padded = np.zeros(nt * c["kTile"], bool)
+    padded[:n] = bits
+    mask = np.packbits(bits, bitorder="little")
+    nib = np.where(g < n, (mask[np.minimum(g, n - 1) >> 3] >> (g & 4)) & 15,
+                   0)
+    left = np.clip(n - g, 0, c["kGroup"])
+    nib &= (1 << left) - 1
+    flags = (nib[..., None] >> np.arange(c["kGroup"])) & 1
+    assert np.array_equal(flags.reshape(-1).astype(bool), padded)
+    # lanes 8q..8q+7 OR their nibbles into mask word q of the run
+    words = (nib << (c["kGroup"] * (lane & 7))).reshape(*g.shape[:3], 4, 8)
+    words = np.bitwise_or.reduce(words, axis=-1).astype("<u4")
+    packed = words.reshape(-1).view(np.uint8)[: (n + 7) // 8]
+    assert packed.tobytes() == mask.tobytes()
+    counts = flags.reshape(nt, -1).sum(1)  # each tile's aggregate
+    offset = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    in_tile = np.cumsum(flags.reshape(nt, -1), 1) - flags.reshape(nt, -1)
+    pos = (offset[:, None] + in_tile).reshape(-1)[:n]
+    assert np.array_equal(pos[bits], np.arange(int(bits.sum())))
 
 
 def _adam_inputs(shape, seed):
@@ -540,6 +696,16 @@ def test_kernels_match_plain_versions_on_the_card():
             assert _bits(wire_pack.wire_unpack(rp[0], rp[2][:k], n, tdt)
                          .cpu()) == _bits(ref.wire_unpack_ref(
                              rp[0], rp[2][:k], n, tdt).cpu())
+        # fewer values than set bits: the gather clamps to the last value
+        # (the values' memory goes on past the view, so a gather that is
+        # not clamped reads the true values and differs)
+        for short in (1, 3, k):
+            cv = rp[2][:max(k - short, 0)]
+            assert _bits(wire_pack.wire_unpack_add(t, rp[0], cv).cpu()) \
+                == _bits(ref.wire_unpack_add_ref(t, rp[0], cv).cpu())
+            assert _bits(wire_pack.wire_unpack(rp[0], cv, n, torch.float16)
+                         .cpu()) == _bits(ref.wire_unpack_ref(
+                             rp[0], cv, n, torch.float16).cpu())
         ins = [torch.from_numpy(a).to(dev) for a in _adam_inputs((n,), n)]
         for step, v_t, scale in ((1, 0.0, 1.0), (100, 0.7, 1.0 / 3.0)):
             got = fused_adam.adam_sig_update(*ins, 1e-3, step, v_t,
