@@ -38,6 +38,10 @@ Two runtimes, as in the JAX package:
       python -m repro_torch.launch.train --runtime faas --workload lr \\
           --workload-cfg '{"n_samples":200000}' --optimizer adam --lr 0.01
 
+  ``--consistency ssp --slack S`` runs bounded staleness in place of the
+  per-step ISP barrier, and ``--transport shm`` moves the workers' data
+  path onto shared-memory rings; alone or together.
+
 Both run on ``--device`` (default ``cuda``; ``cpu`` only when asked for)
 and print their result as JSON. The JAX driver's fleet scheduling
 (``--jobs``), chaos plans, topology tuning and ``--hostperf`` are not yet
@@ -528,6 +532,7 @@ def train_faas(args) -> dict:
         n_brokers=args.n_brokers,
         transport=args.transport,
         consistency=args.consistency,
+        slack=args.slack,
         shard_split_bytes=args.shard_split_bytes,
         autotune=args.autotune,
         tuner=AutoTunerConfig(
@@ -598,8 +603,16 @@ def main() -> None:
                     help="JSON overrides for the workload config")
     ap.add_argument("--invocation-steps", type=int, default=1_000_000)
     ap.add_argument("--n-brokers", type=int, default=1)
-    ap.add_argument("--transport", default="tcp", choices=("tcp", "shm"))
-    ap.add_argument("--consistency", default="isp", choices=("isp", "ssp"))
+    ap.add_argument("--transport", default="tcp", choices=("tcp", "shm"),
+                    help="faas: worker<->shard update-path channel: "
+                    "persistent loopback TCP or shared-memory rings (same "
+                    "accounted bytes)")
+    ap.add_argument("--consistency", default="isp", choices=("isp", "ssp"),
+                    help="faas: pull-barrier model — 'isp' full per-step "
+                    "barrier, 'ssp' bounded staleness (a pull at step t "
+                    "waits only for steps <= t - slack - 1)")
+    ap.add_argument("--slack", type=int, default=3,
+                    help="faas: SSP staleness bound (ignored under isp)")
     ap.add_argument("--shard-split-bytes", type=int, default=0)
     ap.add_argument("--run-dir", default=None)
     # JAX-driver options that are not yet ported: accepted, then refused

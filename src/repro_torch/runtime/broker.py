@@ -26,9 +26,14 @@ Responsibilities of every shard:
   a SIGKILL loses at most unacknowledged requests, which the workers'
   idempotent RPC layer retries.
 
-The request/response loop serves persistent TCP connections, one thread
-per socket.  The shared-memory transport of the JAX package is not yet
-ported: a ``shm_serve`` request is refused.
+The request/response loop itself is *transport-generic* (DESIGN.md §12):
+the same handler loop serves a persistent TCP connection (one thread per
+socket) or a shared-memory ring-buffer channel (one thread per
+``wire.shm`` segment, attached on a ``shm_serve`` control request from
+the supervisor).  ``BrokerCore`` never sees the difference — headers,
+payload bytes, WAL records and byte accounting are identical on both
+transports by construction.  The supervisor's control plane (poll /
+evict / shutdown / shm_serve itself) always rides TCP.
 
 The *coordinator* (shard 0) additionally owns everything that must be
 globally consistent — the paper's messaging-VM role:
@@ -257,6 +262,9 @@ class BrokerCore:
         # the SSP release rule is stated in.
         self.clocks: dict[int, int] = {}
         self.statuses: dict[int, str] = {w: "spawned" for w in range(self.P)}
+        # kernel launches of work done after a worker's last step (the SSP
+        # drain), carried by its final bye
+        self.bye_launches: dict[int, dict[str, int]] = {}
         self.max_published = 0
         self.dup_mismatches = 0
         self.update_bytes = 0  # codec-accounted published update bytes
@@ -568,6 +576,10 @@ class BrokerCore:
     def _op_bye(self, h: dict, _p: bytes) -> tuple[dict, bytes]:
         with self._lock:
             self.statuses[int(h["worker"])] = f"bye:{h.get('reason', '?')}"
+            if "launches" in h:
+                self.bye_launches[int(h["worker"])] = {
+                    k: int(v) for k, v in h["launches"].items()
+                }
         return {"ok": True}, b""
 
     def _op_evict(self, h: dict, _p: bytes) -> tuple[dict, bytes]:
@@ -858,6 +870,10 @@ class BrokerCore:
                 "dup_mismatches": self.dup_mismatches,
                 **self._membership(),
             }
+            if self.bye_launches:  # absent unless a drain reported
+                resp["bye_launches"] = {
+                    str(w): dict(c) for w, c in self.bye_launches.items()
+                }
             if self.wal_quarantined_bytes:
                 # key absent on the default path — response bytes stay
                 # baseline-identical with no corruption ever seen
@@ -974,8 +990,11 @@ class _Server(socketserver.ThreadingTCPServer):
 class Broker:
     """Server shell around ``BrokerCore``; in-thread or standalone.
 
-    Binds a TCP port: the supervisor's control plane and the worker data
-    path.
+    Always binds a TCP port (the supervisor's control plane and the
+    default worker data path); additionally serves any number of
+    shared-memory segments handed to it via ``shm_serve`` requests —
+    one daemon thread per segment running the same handler loop the TCP
+    connections run (DESIGN.md §12.3).
 
     With ``wal_path`` the cores replay any existing log BEFORE the port is
     bound (a respawned shard never serves from partial state) and append
@@ -984,7 +1003,7 @@ class Broker:
     Multi-job (DESIGN.md §14): a config with a ``"jobs"`` key —
     ``{"jobs": {job_id: job_dict, ...}}`` — hosts one independent
     ``BrokerCore`` per job in this process, all sharing one TCP port,
-    and one WAL file.  Requests route by their
+    one WAL file, and the shm segments.  Requests route by their
     ``job`` header; a request without one goes to the sole core (so
     single-job traffic is byte-identical to the single-core build).
     ``self.core`` remains the sole/first core for solo-path callers.
@@ -1020,6 +1039,8 @@ class Broker:
         self._server.core = self.core  # type: ignore[attr-defined]
         self._server.broker = self  # type: ignore[attr-defined]
         self._thread: Optional[threading.Thread] = None
+        self._shm_threads: dict[str, threading.Thread] = {}
+        self._shm_lock = threading.Lock()
 
     # -- multi-core routing ----------------------------------------------------
 
@@ -1063,9 +1084,60 @@ class Broker:
             c._wal = wal
         return replayed
 
+    # -- shared-memory data path ----------------------------------------------
+
     def shm_serve(self, header: dict) -> dict:
-        """The shared-memory data path is not yet ported: refuse it."""
-        return {"ok": False, "error": "shm transport: not yet ported"}
+        """Attach one ``wire.shm`` segment and serve it from a dedicated
+        thread.  Idempotent: a retried request for a segment this process
+        already serves is acked without a second (ring-resetting) attach —
+        two servers on one ring would corrupt the stream."""
+        name = str(header["seg"])
+        with self._shm_lock:
+            # dead threads (prior invocations' segments) would otherwise
+            # accumulate one entry per invocation x shard for the job's
+            # lifetime
+            self._shm_threads = {
+                n: th for n, th in self._shm_threads.items() if th.is_alive()
+            }
+            t = self._shm_threads.get(name)
+            if t is not None:
+                return {"ok": True, "seg": name, "already": True}
+            t = threading.Thread(
+                target=self._serve_shm_segment, args=(name,), daemon=True,
+                name=f"shm-{name}",
+            )
+            self._shm_threads[name] = t
+            t.start()
+        return {"ok": True, "seg": name, "already": False}
+
+    def _serve_shm_segment(self, name: str) -> None:
+        from repro_torch.wire import shm
+
+        def stopping() -> bool:
+            return self.all_shutting_down()
+
+        while not self.all_shutting_down():
+            try:
+                chan = shm.ShmServerChannel(name, stop=stopping)
+            except (ConnectionError, OSError, FileNotFoundError):
+                return  # segment gone (worker slot torn down)
+            try:
+                while not self.all_shutting_down():
+                    try:
+                        rid, header, payload = chan.recv()
+                    except shm.TornFrameError:
+                        # desynced stream (e.g. a client abandoned a
+                        # half-sent frame): heal by re-serving — the
+                        # ring reset + generation bump make the client
+                        # replay its request from a clean stream
+                        break
+                    core, resp, blob = self.dispatch(header, payload)
+                    out = chan.send(rid, resp, blob)
+                    _account_request(core, header, payload, out)
+            except (ConnectionError, OSError, TimeoutError, ValueError):
+                chan.close(mark_closed=self.all_shutting_down())
+                return  # peer death or shutdown: this channel is done
+            chan.close()  # torn-frame break: loop around and re-serve
 
     @property
     def addr(self) -> tuple[str, int]:
@@ -1098,6 +1170,12 @@ class Broker:
             self._thread.join(timeout=timeout)
             if self._thread.is_alive():
                 wedged.append(self._thread.name)
+        with self._shm_lock:
+            shm_threads = list(self._shm_threads.values())
+        for t in shm_threads:  # they exit within one wait slice (~50 ms)
+            t.join(timeout=timeout)
+            if t.is_alive():
+                wedged.append(t.name)
         # cores share one WAL in fleet mode — close each distinct log once
         closed: set[int] = set()
         for core in self.cores.values():

@@ -12,12 +12,21 @@ Owns one training job end to end:
 * respawns workers at invocation boundaries and after crashes (restore
   the newest checkpoint, replay forward), and a crashed broker shard on
   its original port (WAL replay);
+* under ``transport='shm'`` owns every shared-memory segment (DESIGN.md
+  §12): fresh segments per worker invocation, served by each shard before
+  the worker spawns, re-served after a shard respawn, and unlinked when
+  the invocation ends and, whatever is left, when the job ends;
+* compiles the legacy fault knobs (``kill_worker_at_step``,
+  ``kill_broker_at_step``, ``straggler``) into one ``faults.FaultPlan``:
+  the supervisor fires the kills, the workers the straggler's delay;
 * bills every invocation's measured lifetime through ``faas_cost``.
 
-The job's device travels in the job dict, so every worker follows it.
-Not yet ported from the JAX supervisor: the shm transport, SSP, the
-topology tuner and live re-sharding, pre-warmed respawn, the chaos plane,
-the crash journal and ``hostperf``; a config that asks for one raises.
+The job's device travels in the job dict, so every worker follows it, as
+do ``consistency`` (``isp``, or bounded-staleness ``ssp`` with ``slack``,
+DESIGN.md §13) and the transport. Not yet ported from the JAX supervisor:
+an explicit ``chaos`` spec and its journal, the topology tuner and live
+re-sharding, pre-warmed respawn, the fleet and ``hostperf``; a config that
+asks for one raises.
 
 State machine per worker slot::
 
@@ -32,6 +41,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import secrets
 import signal
 import subprocess
 import sys
@@ -44,10 +54,18 @@ from repro_torch.core.autotuner import AutoTunerConfig, ScaleInAutoTuner
 from repro_torch.core.billing import FaaSBill, faas_cost
 from repro_torch.runtime import protocol
 from repro_torch.runtime import workload as workload_lib
-from repro_torch.runtime.faults import RetryPolicy
+from repro_torch.runtime.faults import (
+    SUPERVISOR_KINDS,
+    FaultEvent,
+    FaultPlan,
+    RetryPolicy,
+)
 from repro_torch.wire import codec as wire_codec
 
 PyTree = Any
+
+# per-direction ring capacity of each worker<->shard shm segment
+SHM_RING_BYTES = 4 << 20
 
 
 @dataclasses.dataclass
@@ -66,7 +84,15 @@ class FaaSJobConfig:
     lr: float = 0.08
     isp_v: float = 0.7
     isp_decay: bool = True
+    # pull-barrier consistency (DESIGN.md §13): 'isp' is the full per-step
+    # barrier; 'ssp' is bounded staleness — a pull at step t blocks only
+    # until every update from steps <= t - slack - 1 is stored, and is
+    # served exactly that step
     consistency: str = "isp"
+    slack: int = 3
+    # {"worker": k, "delay_s": d, "every": n}: worker k sleeps d seconds
+    # inside every n-th step's compute phase
+    straggler: Optional[dict] = None
     # update wire encoding: 'auto'|'dense'|'sparse'|'bitmap', optional
     # 'fp16'|'bf16' value quantization with error-feedback residual
     wire_scheme: str = "auto"
@@ -75,6 +101,10 @@ class FaaSJobConfig:
     # the main path, 'numpy' is the host reference, 'auto' picks per leaf
     wire_impl: str = "cuda"
     n_brokers: int = 1
+    # worker<->shard data path (DESIGN.md §12): 'tcp' is the persistent
+    # loopback socket, 'shm' the supervisor-allocated shared-memory ring
+    # segments (same framing, codec and accounted bytes); the
+    # supervisor's own control plane always rides TCP
     transport: str = "tcp"
     shard_split_bytes: int = 0
     partitioner: str = "greedy"
@@ -82,12 +112,37 @@ class FaaSJobConfig:
     tuner: Optional[AutoTunerConfig] = None
     scripted_evict_steps: tuple[int, ...] = ()
     kill_worker_at_step: Optional[tuple[int, int]] = None  # (worker, step)
+    kill_broker_at_step: Optional[tuple[int, int]] = None  # (shard, step)
+    # an explicit FaultPlan spec (the JAX chaos plane): not yet ported
+    chaos: Optional[dict] = None
     rpc: Optional[dict] = None
     poll_interval_s: float = 0.05
     deadline_s: float = 600.0
     pull_deadline_s: float = 120.0
     broker_spawn_timeout_s: float = 30.0
     seed: int = 0
+
+    def compiled_chaos_plan(self) -> Optional[FaultPlan]:
+        """The legacy one-off knobs as one fault plan:
+        ``kill_worker_at_step`` / ``kill_broker_at_step`` become supervisor
+        kill events and ``straggler`` a repeating ``compute_delay``. None
+        when the job injects nothing."""
+        events = []
+        if self.kill_worker_at_step is not None:
+            w, at = self.kill_worker_at_step
+            events.append(FaultEvent("worker_kill", int(at), worker=int(w)))
+        if self.kill_broker_at_step is not None:
+            s, at = self.kill_broker_at_step
+            events.append(FaultEvent("broker_kill", int(at), shard=int(s)))
+        if self.straggler is not None:
+            st = self.straggler
+            events.append(FaultEvent(
+                "compute_delay", 0, worker=int(st["worker"]),
+                delay_s=float(st["delay_s"]), every=int(st.get("every", 1)),
+            ))
+        if not events:
+            return None
+        return FaultPlan(seed=0, events=tuple(events)).validate()
 
     def job_dict(self, n_batches: int) -> dict:
         d = {
@@ -103,6 +158,7 @@ class FaaSJobConfig:
             "isp_v": self.isp_v,
             "isp_decay": self.isp_decay,
             "consistency": self.consistency,
+            "slack": self.slack,
             "wire_scheme": self.wire_scheme,
             "wire_quant": self.wire_quant,
             "wire_impl": self.wire_impl,
@@ -116,6 +172,9 @@ class FaaSJobConfig:
             "pull_deadline_s": self.pull_deadline_s,
             "seed": self.seed,
         }
+        plan = self.compiled_chaos_plan()
+        if plan is not None:
+            d["chaos"] = plan.to_spec()
         if self.rpc is not None:
             d["rpc"] = dict(self.rpc)
         return d
@@ -130,6 +189,9 @@ class _Slot:
     spawned_at: float = 0.0
     invocations: int = 0
     terminal: Optional[str] = None  # 'done' | 'evicted'
+    # shm transport: this invocation's per-shard segment names (fresh per
+    # invocation, the shm analogue of a new connection per invocation)
+    shm_segs: list = dataclasses.field(default_factory=list)
 
     @property
     def alive(self) -> bool:
@@ -148,12 +210,17 @@ class _BrokerShard:
 
 class Supervisor:
     def __init__(self, cfg: FaaSJobConfig):
-        if cfg.transport != "tcp":
-            raise NotImplementedError(
-                f"transport {cfg.transport!r}: not yet ported")
-        if cfg.consistency != "isp":
-            raise NotImplementedError(
-                f"consistency {cfg.consistency!r}: not yet ported")
+        if cfg.transport not in ("tcp", "shm"):
+            raise ValueError(
+                f"transport must be 'tcp' or 'shm', got {cfg.transport!r}")
+        if cfg.consistency not in ("isp", "ssp"):
+            raise ValueError(f"consistency must be 'isp' or 'ssp', got "
+                             f"{cfg.consistency!r}")
+        if cfg.consistency == "ssp" and cfg.slack < 0:
+            raise ValueError(f"slack must be >= 0, got {cfg.slack}")
+        if cfg.chaos is not None:
+            raise NotImplementedError("an explicit chaos spec: not yet "
+                                      "ported")
         if cfg.wire_impl not in wire_codec.IMPLS:
             raise ValueError(
                 f"wire_impl must be one of {wire_codec.IMPLS}, got "
@@ -162,6 +229,16 @@ class Supervisor:
         if cfg.partitioner not in ("greedy", "ring"):
             raise ValueError(f"partitioner must be 'greedy' or 'ring', got "
                              f"{cfg.partitioner!r}")
+        self.plan = cfg.compiled_chaos_plan()
+        if self.plan is not None:
+            for e in self.plan.events:
+                if e.worker is not None and not 0 <= e.worker < cfg.n_workers:
+                    raise ValueError(f"fault event targets worker "
+                                     f"{e.worker} of {cfg.n_workers}: {e}")
+                if e.shard is not None and not 0 <= e.shard < cfg.n_brokers:
+                    raise ValueError(f"fault event targets shard "
+                                     f"{e.shard} of {cfg.n_brokers}: {e}")
+        self._kills_fired: set[int] = set()
         self.cfg = cfg
         self.rpc_policy = RetryPolicy.from_dict(cfg.rpc)
         self.wl = workload_lib.build(cfg.workload, cfg.workload_cfg,
@@ -176,11 +253,15 @@ class Supervisor:
         self.respawns: list[dict] = []
         self.broker_respawns: list[dict] = []
         self.evictions: dict[int, int] = {}
+        self.bye_launches: dict[str, dict[str, int]] = {}
         self._frontier = 0
         self._poll_since = 1
         self._scripted_fired = 0
-        self._kill_pending = cfg.kill_worker_at_step
         self._stopping = False
+        # shm transport: a job-unique segment namespace and the live
+        # segments (the supervisor alone creates and unlinks them)
+        self._shm_token = f"ml{os.getpid():x}{secrets.token_hex(2)}"
+        self._shm_segments: dict[str, Any] = {}  # name -> wire.shm.Segment
         self.tuner: Optional[ScaleInAutoTuner] = None
         if cfg.autotune:
             self.tuner = ScaleInAutoTuner(cfg.tuner or AutoTunerConfig(),
@@ -272,19 +353,85 @@ class Supervisor:
                     self._conns[bs.shard].close()
                     self._conns[bs.shard] = None
                 self._spawn_broker(bs)
+                if self.cfg.transport == "shm":
+                    # the shard's serving threads died with it: hand it
+                    # every live worker's segment again (each re-serve
+                    # resets that ring pair and bumps its generation, so
+                    # in-flight workers replay through their RPC retries)
+                    self._reserve_shard_shm(bs)
+
+    # -- shared-memory segment lifecycle --------------------------------------
+    #
+    # One segment per (worker, shard), created fresh for every worker
+    # invocation: a dying invocation's half-written rings are never reused;
+    # its broker-side threads exit on client-death detection and the
+    # supervisor unlinks the memory.
+
+    def _teardown_worker_shm(self, slot: _Slot) -> None:
+        from repro_torch.wire import shm
+
+        for name in slot.shm_segs:
+            seg = self._shm_segments.pop(name, None)
+            if seg is not None:
+                seg.unlink()
+            else:  # pragma: no cover - belt and braces
+                shm.Segment.unlink_by_name(name)
+        slot.shm_segs = []
+
+    def _setup_worker_shm(self, slot: _Slot) -> str:
+        """Fresh segments for this slot's next invocation, each served by
+        its shard; returns the base name (shard s attaches '<base>s<s>')."""
+        from repro_torch.wire import shm
+
+        self._teardown_worker_shm(slot)
+        base = f"{self._shm_token}w{slot.worker}i{slot.invocations}"
+        names = [f"{base}s{s}" for s in range(len(self.shards))]
+        for name in names:
+            self._shm_segments[name] = shm.Segment.create(
+                name, ring_bytes=SHM_RING_BYTES)
+        slot.shm_segs = names
+        for s, name in enumerate(names):
+            resp, _ = self._rpc({"t": "shm_serve", "seg": name}, shard=s)
+            if not resp.get("ok"):
+                raise RuntimeError(f"shard {s} refused shm_serve: {resp}")
+        return base
+
+    def _reserve_shard_shm(self, bs: _BrokerShard) -> None:
+        """After a shard respawn: serve every live worker's segment for
+        this shard again. One-shot RPCs to the just-bound port: this runs
+        inside ``_rpc``'s retry path and must not recurse into it."""
+        for slot in self.slots:
+            if slot.terminal is not None or not slot.shm_segs:
+                continue
+            name = slot.shm_segs[bs.shard]
+            for attempt in range(3):
+                try:
+                    protocol.request(bs.addr, {"t": "shm_serve", "seg": name},
+                                     timeout=10.0)
+                    break
+                except (ConnectionError, OSError, TimeoutError):
+                    if attempt == 2:
+                        # workers ride it out: their shm connect wait and
+                        # RPC retries outlast the next reap cycle
+                        break
+                    time.sleep(0.2)
 
     def _spawn(self, slot: _Slot) -> None:
         logdir = os.path.join(self.cfg.run_dir, "logs")
         os.makedirs(logdir, exist_ok=True)
         brokers = ",".join(f"{h}:{p}" for h, p in
                            (bs.addr for bs in self.shards))
+        cmd = [sys.executable, "-m", "repro_torch.runtime.worker",
+               "--brokers", brokers, "--worker-id", str(slot.worker)]
+        if self.cfg.transport == "shm":
+            cmd += ["--transport", "shm",
+                    "--shm-seg", self._setup_worker_shm(slot)]
         log_path = os.path.join(
             logdir, f"w{slot.worker:03d}.inv{slot.invocations:03d}.log")
         with open(log_path, "wb") as log:
             slot.proc = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.runtime.worker",
-                 "--brokers", brokers, "--worker-id", str(slot.worker)],
-                stdout=log, stderr=subprocess.STDOUT, env=self._worker_env(),
+                cmd, stdout=log, stderr=subprocess.STDOUT,
+                env=self._worker_env(),
             )
         slot.spawned_at = time.monotonic()
         slot.invocations += 1
@@ -302,8 +449,10 @@ class Supervisor:
         status = statuses.get(str(slot.worker), "")
         if status == "bye:done":
             slot.terminal = "done"
+            self._teardown_worker_shm(slot)
         elif status == "bye:evicted":
             slot.terminal = "evicted"
+            self._teardown_worker_shm(slot)
         elif status == "bye:invocation-end":
             self._spawn(slot)
         else:
@@ -346,7 +495,26 @@ class Supervisor:
             if self.tuner is not None:
                 self.tuner.observe(row["step"], row["loss"], row["dur_s"])
         self.evictions = {int(k): v for k, v in resp["evictions"].items()}
+        self.bye_launches = resp.get("bye_launches", self.bye_launches)
         return resp
+
+    def _fire_kills(self) -> None:
+        """SIGKILL each planned victim once the frontier reaches its step
+        and it is running (a victim between processes waits for the next
+        one)."""
+        if self.plan is None:
+            return
+        for idx, e in enumerate(self.plan.events):
+            if (e.kind not in SUPERVISOR_KINDS or idx in self._kills_fired
+                    or self._frontier < e.step):
+                continue
+            # compiled_chaos_plan makes worker_kill and broker_kill only
+            victim = (self.slots[e.worker] if e.kind == "worker_kill"
+                      else self.shards[e.shard])
+            proc = victim.proc
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(signal.SIGKILL)
+                self._kills_fired.add(idx)
 
     def _evict_victim(self, reason: str, s_delta=None) -> bool:
         """Highest-id live, non-terminal, non-evicted worker leaves."""
@@ -383,12 +551,7 @@ class Supervisor:
                 time.sleep(cfg.poll_interval_s)
                 self._reap_brokers()
                 statuses = self._poll()["statuses"]
-                if self._kill_pending is not None:
-                    w, at = self._kill_pending
-                    slot = self.slots[w]
-                    if self._frontier >= at and slot.alive:
-                        slot.proc.send_signal(signal.SIGKILL)
-                        self._kill_pending = None
+                self._fire_kills()
                 for slot in self.slots:
                     if (slot.terminal is None and slot.proc is not None
                             and slot.proc.poll() is not None):
@@ -435,6 +598,11 @@ class Supervisor:
                     except subprocess.TimeoutExpired:
                         bs.proc.kill()
                         bs.proc.wait()
+            # the supervisor owns every shm segment: none may outlive the
+            # job (they are named host-global resources, not fds)
+            for seg in self._shm_segments.values():
+                seg.unlink()
+            self._shm_segments.clear()
         wall = time.monotonic() - t_job0
         bill = faas_cost(self.lifetimes, wall, n_redis=len(self.shards))
         return self._result(wall, bill, shard_stats)
@@ -459,8 +627,9 @@ class Supervisor:
             for k in phases[0]
         } if phases else {}
         launches: dict[str, dict[str, int]] = {}
-        for r in hist:
-            for w, counts in (r.get("launches_by_worker") or {}).items():
+        per_step = [r.get("launches_by_worker") or {} for r in hist]
+        for by_worker in per_step + [self.bye_launches]:
+            for w, counts in by_worker.items():
                 acc = launches.setdefault(w, {})
                 for k, v in counts.items():
                     acc[k] = acc.get(k, 0) + int(v)
@@ -477,6 +646,10 @@ class Supervisor:
             "n_workers": self.cfg.n_workers,
             "n_brokers": len(self.shards),
             "transport": self.cfg.transport,
+            "consistency": self.cfg.consistency,
+            "slack": (self.cfg.slack if self.cfg.consistency == "ssp"
+                      else None),
+            "shm_token": self._shm_token,
             "steps": self._frontier,
             "final_pool": sum(1 for s in self.slots if s.terminal == "done"),
             "final_loss": hist[-1]["loss"] if hist else None,

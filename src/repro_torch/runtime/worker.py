@@ -2,10 +2,14 @@
 (port of ``repro.runtime.worker``).
 
 Spawned as ``python -m repro_torch.runtime.worker --brokers HOST:PORT[,...]
---worker-id K`` with no other job state on the command line: workload,
-threshold, step budget, checkpoint root and device come from the
-coordinator shard's hello response, and model / optimizer / residual state
-is restored from ``checkpoint.store``.
+--worker-id K [--transport shm --shm-seg BASE]`` with no other job state on
+the command line: workload, threshold, step budget, consistency, checkpoint
+root and device come from the coordinator shard's hello response, and
+model / optimizer / residual state is restored from ``checkpoint.store``.
+The worker holds one persistent channel per broker shard: a loopback TCP
+socket (``tcp``, the default) or the supervisor-allocated shared-memory
+ring segment ``<BASE>s<shard>`` (``shm``, DESIGN.md §12) — same framing,
+same codec, same accounted bytes.
 
 Per step t, on the job's device (``cuda`` unless the job says ``cpu``):
 
@@ -19,17 +23,25 @@ Per step t, on the job's device (``cuda`` unless the job says ``cpu``):
    (``kernels.ops.significance_tree``);
 4. encode ``sig`` per shard through the codec (B4 under the default
    ``wire_impl='cuda'``); only the wire bytes leave the device;
-5. publish, pull the peers' slices for t, fold them into device-resident
+5. publish, pull the peers' slices, fold them into device-resident
    accumulators (B5 for bitmap leaves) and apply
    ``x += u_t + sum_peers sig`` in a fixed per-element order, so final
-   params are bit-exact across shard counts and replays;
+   params are bit-exact across shard counts, transports and replays. Under
+   ``isp`` the pull at t delivers the peers' step t; under ``ssp`` (bounded
+   staleness, DESIGN.md §13) it delivers the frontier step
+   ``t - slack - 1`` (nothing while that is below 1), and after the last
+   step the worker drains the undelivered tail peers-only and checkpoints
+   the drained params at the sentinel step ``total_steps + 1``;
 6. on an eviction effective at t: publish ``x + residual`` and exit; on a
-   flush from a leaving peer: mean-preserving reintegration.
+   flush from a leaving peer: mean-preserving reintegration, divided by
+   the pool just before the step it is delivered at.
 
 Each step reports its phase times (fetch / compute / encode / wire /
-decode) and the kernel launches it made. On CUDA the worker runs PyTorch's
-deterministic algorithms, so the scatter-adds of the PMF gradient sum in a
-fixed order and replays stay bit-identical.
+decode) and the kernel launches it made; the SSP drain's launches ride
+the final ``bye``. A straggler sleep from the job's fault plan
+(``FaaSJobConfig.straggler``) falls inside the compute phase. On CUDA the
+worker runs PyTorch's deterministic algorithms, so the scatter-adds of the
+PMF gradient sum in a fixed order and replays stay bit-identical.
 
 Exit codes: 0 clean (done / evicted / invocation boundary), 3 broker
 abort, 4 broker unreachable, 5 barrier deadline exceeded.
@@ -42,7 +54,7 @@ import os
 import time
 from typing import Any, Optional
 
-from repro_torch.runtime.faults import RetryPolicy
+from repro_torch.runtime.faults import FaultPlan, RetryPolicy, WorkerFaults
 
 PyTree = Any
 
@@ -85,8 +97,10 @@ class _Membership:
         return self.evictions.get(worker)
 
 
-def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
-    """One worker's life for one job (solo path)."""
+def run_worker(addrs: list[tuple[str, int]], worker_id: int,
+               transport: str = "tcp", shm_seg: Optional[str] = None) -> int:
+    """One worker's life for one job (solo path). ``shm_seg`` is the base
+    name of the supervisor's segments under ``transport='shm'``."""
     # torch is imported here so ``--help`` stays instant: the import is
     # part of the measured cold start of each invocation
     import torch
@@ -107,8 +121,14 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
         return rpc_policy
 
     n_shards = len(addrs)
-    conns = [protocol.Connection(a, timeout=rpc_policy.timeout_s)
-             for a in addrs]
+    # the transport factory is the only transport-aware line
+    conns = [
+        protocol.make_transport(
+            transport, addr=a,
+            shm_name=f"{shm_seg}s{s}" if shm_seg else None,
+            timeout=rpc_policy.timeout_s)
+        for s, a in enumerate(addrs)
+    ]
     rpc0 = _make_rpc(conns[0], _policy)
 
     def fanout(shard_ids, headers, payloads=None, timeout=None):
@@ -135,6 +155,12 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
     members.update(hello)
     if job.get("rpc"):
         rpc_policy = RetryPolicy.from_dict(job["rpc"]).reseed(worker_id)
+    # this worker's slice of the job's fault plan (the straggler's
+    # compute delay); with no plan every hook stays dormant
+    _plan = FaultPlan.from_spec(job.get("chaos"))
+    wfaults = WorkerFaults(_plan, worker_id) if _plan is not None else None
+    if wfaults is not None:
+        wfaults.install()
 
     wl = workload_lib.build(job["workload"], job["workload_cfg"],
                             device=job.get("device", "cuda"))
@@ -157,6 +183,10 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
     wire_scheme = str(job.get("wire_scheme", "auto"))
     wire_quant = str(job.get("wire_quant", "none"))
     wire_impl = str(job.get("wire_impl", "cuda"))
+    # bounded staleness (DESIGN.md §13): under 'ssp' a pull at step t is
+    # served exactly the peers' updates of step t - slack - 1
+    consistency = str(job.get("consistency", "isp"))
+    slack = int(job.get("slack", 3))
     ckpt_dir = os.path.join(job["run_dir"], "ckpt", f"w{worker_id:03d}")
 
     params = wl.params0
@@ -227,8 +257,13 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
             return
         last_saved = step_done
 
-    def bye(reason: str) -> None:
-        rpc0({"t": "bye", "worker": worker_id, "reason": reason})
+    def bye(reason: str, launches: Optional[dict] = None) -> None:
+        if wfaults is not None:
+            wfaults.uninstall()  # the farewell RPCs run fault-free
+        hdr = {"t": "bye", "worker": worker_id, "reason": reason}
+        if launches:
+            hdr["launches"] = launches
+        rpc0(hdr)
         for c in conns:
             c.close()
 
@@ -296,10 +331,34 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def ssp_drain(params):
+        """Catch-up merge: the last regular pull (step T) delivered the
+        frontier T - slack - 1, so steps T - slack .. T are undelivered.
+        Pull them on the same schedule (a pull at td delivers
+        td - slack - 1) and apply peers-only, step-ascending — the order a
+        peer that saw them live used. Returns (exit_code, params)."""
+        for td in range(total_steps + 1, total_steps + slack + 2):
+            code, shard_parts = pull_all(td)
+            if code is not None:
+                return code, params
+            peers_sum, flushes = decode_parts(shard_parts)
+            params = tree_lib.tree_map(lambda a, c: a + c.to(a.dtype),
+                                       params, peers_sum)
+            if flushes:
+                params = apply_flushes(params, flushes, td - slack - 1)
+        sync()
+        return None, params
+
+    def launched_since(before: dict) -> dict:
+        return {k: v - before.get(k, 0) for k, v in kbuild.LAUNCHES.items()
+                if v != before.get(k, 0)}
+
     t = start_step
     steps_this_invocation = 0
     key_next: Optional[int] = None  # piggybacked by the previous pull
     while True:
+        if wfaults is not None:
+            wfaults.at_step(t)
         ev = members.my_evict_step(worker_id)
         if ev is not None and ev <= total_steps and t >= ev:
             # eviction effective at ev: publish replica + residual (no
@@ -318,8 +377,24 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
             bye("evicted")
             return 0
         if t > total_steps:
-            save_ckpt(t - 1)
-            bye("done")
+            if consistency == "ssp" and t == total_steps + 1:
+                # drain exactly once: the sentinel checkpoint makes a
+                # post-drain respawn resume at total_steps + 2 and go
+                # straight to bye; a SIGKILL mid-drain restores a step
+                # <= total_steps, replays (publishes dup-check identical)
+                # and drains again from scratch
+                launches0 = dict(kbuild.LAUNCHES)
+                code, params = ssp_drain(params)
+                if code is not None:
+                    # no checkpoint of partly drained params: the respawn
+                    # restores a pre-drain step and re-drains (pulls are
+                    # read-only, so the replay is exact)
+                    return code
+                save_ckpt(total_steps + 1)
+                bye("done", launched_since(launches0))
+            else:
+                save_ckpt(t - 1)
+                bye("done")
             return 0
         if steps_this_invocation >= invocation_steps:
             save_ckpt(t - 1)
@@ -343,6 +418,12 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
         u, sig, res, opt_state, loss, sent, inv_err = compute(
             params, opt_state, residual, batch, 1.0 / p_act, t)
         sync()
+        if wfaults is not None:
+            # the straggler's injected stall, inside the compute phase:
+            # the peers' exposure to it is what ISP and SSP price apart
+            delay = wfaults.compute_delay_s(t)
+            if delay > 0.0:
+                time.sleep(delay)
         t_compute = tp()
         # -- encode (B4 under wire_impl='cuda'); quantization error joins
         #    the residual
@@ -357,7 +438,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
             sync()
         total_bytes = sum(protocol.wire_bytes(meta) for meta, _ in per_shard)
         t_encode = tp()
-        # -- wire: one pipelined publish round, then the ISP-barrier pulls
+        # -- wire: one pipelined publish round, then the barrier pulls
         pub_hdrs = []
         for s, (meta, _parts) in enumerate(per_shard):
             hdr = {"t": "publish", "worker": worker_id, "step": t,
@@ -373,7 +454,9 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
         if code is not None:
             return code
         t_wire = tp()
-        # -- decode (B5 for bitmap leaves) into device accumulators
+        # -- decode (B5 for bitmap leaves) into device accumulators: the
+        #    peers' step t under 'isp', the frontier t - slack - 1 under
+        #    'ssp' (no parts, and no launch, while that is below 1)
         peers_sum, flushes = decode_parts(shard_parts)
         sync()
         t_decode = tp()
@@ -381,13 +464,12 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int) -> int:
         params = tree_lib.tree_map(lambda a, b, c: a + b + c.to(a.dtype),
                                    params, u, peers_sum)
         if flushes:
-            params = apply_flushes(params, flushes, t)
+            deliver_step = t - slack - 1 if consistency == "ssp" else t
+            params = apply_flushes(params, flushes, deliver_step)
         sync()
         residual = res
         t_apply = tp()
-        launched = {k: v - launches0.get(k, 0)
-                    for k, v in kbuild.LAUNCHES.items()
-                    if v != launches0.get(k, 0)}
+        launched = launched_since(launches0)
         rpc0({
             "t": "report", "worker": worker_id, "step": t,
             "dur_s": float(t_apply - t0),
@@ -420,8 +502,18 @@ def main() -> None:
                     help="comma-separated HOST:PORT per shard "
                     "(shard 0 = coordinator)")
     ap.add_argument("--worker-id", type=int, required=True)
+    ap.add_argument("--transport", default="tcp", choices=("tcp", "shm"),
+                    help="update-path channel per shard "
+                    "(wire.framing.make_transport); shm needs --shm-seg")
+    ap.add_argument("--shm-seg", default=None,
+                    help="shared-memory segment base name (supervisor-"
+                    "allocated); shard s attaches '<base>s<s>'")
     args = ap.parse_args()
-    raise SystemExit(run_worker(_parse_addrs(args.brokers), args.worker_id))
+    if args.transport == "shm" and not args.shm_seg:
+        ap.error("--transport shm requires --shm-seg")
+    raise SystemExit(run_worker(_parse_addrs(args.brokers), args.worker_id,
+                                transport=args.transport,
+                                shm_seg=args.shm_seg))
 
 
 if __name__ == "__main__":

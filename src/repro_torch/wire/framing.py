@@ -193,7 +193,11 @@ def make_transport(
             raise ValueError("tcp transport requires addr=(host, port)")
         return Connection(addr, timeout=timeout)
     if kind == "shm":
-        raise NotImplementedError("shm transport: not yet ported")
+        if shm_name is None:
+            raise ValueError("shm transport requires shm_name")
+        from repro_torch.wire.shm import ShmConnection  # lazy: Linux-only
+
+        return ShmConnection(shm_name, timeout=timeout)
     raise ValueError(f"unknown transport {kind!r}; known: {TRANSPORTS}")
 
 

@@ -196,11 +196,33 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
         supervisor.Supervisor(FaaSJobConfig(run_dir=str(tmp_path / "s")))
 
 
-@pytest.mark.parametrize("kw", ({"transport": "shm"}, {"consistency": "ssp"}))
-def test_unported_options_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError):
-        supervisor.Supervisor(FaaSJobConfig(run_dir=str(tmp_path), device="cpu",
-                                            workload_cfg=dict(WCFG), **kw))
+@pytest.mark.parametrize("kw", (
+    {"chaos": {"seed": 0, "events": [
+        {"kind": "worker_kill", "step": 2, "worker": 0}]}},
+    {"argv": ["--jobs", "a,b"]},
+    {"argv": ["--chaos", "0:auto"]},
+    {"argv": ["--retune", "4:n_brokers=2"]},
+    {"argv": ["--hostperf"]},
+    {"argv": ["--topology-tune"]},
+))
+def test_unported_options_raise(tmp_path, monkeypatch, kw):
+    """What the port still refuses: an explicit chaos spec on the job, and
+    the fleet, chaos, retune, hostperf and topology-tune flags of the CLI
+    (SSP and shm are ported: tests/test_torch_ssp.py, test_torch_shm.py)."""
+    if "argv" not in kw:
+        with pytest.raises(NotImplementedError):
+            supervisor.Supervisor(FaaSJobConfig(
+                run_dir=str(tmp_path), device="cpu",
+                workload_cfg=dict(WCFG), **kw))
+        return
+    from repro_torch.launch import train as train_cli
+
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--runtime", "faas", "--device", "cpu", "--steps", "1",
+        "--run-dir", str(tmp_path / "r"), *kw["argv"]])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        train_cli.main()
+    assert not os.path.exists(tmp_path / "r")  # refused before any spawn
 
 
 def test_result_reports_what_the_driver_reads(port_run):
