@@ -124,6 +124,20 @@ Phases (any failure exits non-zero; nothing is caught):
    greedy tokens compared (TF32 off for matmul and cuDNN). A profile of one
    prefill and 8 decode steps of each arch (device time, busy share,
    largest kernels, B8's share) says where a serving run's time goes;
+5b. simulator — the serverless training simulator in this process
+   (``repro_torch.core.simulator``), ``examples/mlless_pmf.py``'s jobs at
+   ML-10M width: P = 8 replicas of 2,048 ratings a step, Nesterov 0.08, v
+   0.7, an 8,192-rating eval batch, 120 steps or RMSE 0.95: MLLess BSP,
+   MLLess + ISP (twice: every loss and comm_frac bit-identical), MLLess +
+   ISP + tuner, serverful BSP, PyWren BSP, MLLess SSP (slack 3), and
+   MLLess + ISP at P = 24. B1 and B6 must launch exactly 2 a step (one a
+   leaf) on the ISP jobs and not at all on the others, the eval RMSE must
+   be finite and end below its first step's, and every worker's replica
+   must be the same under BSP. First, B1 and B6 at the stacked leaves
+   (8, 10681, 20), (8, 20, 71567) and (24, 20, 71567) against their plain
+   versions, bit for bit; last, 3 ISP steps at P = 8 on the card and on
+   the CPU (RMSE within 1e-5 and comm_frac within 1e-3 relative), and one
+   steady ISP step under torch.profiler (device and wall ms, operations);
 6. times — each kernel and its plain version at the main paths' shapes
    and measured density, with CUDA events, L2 cold (a 64 MiB buffer is
    rewritten before every launch) and warm, beside the bound: the bytes
@@ -247,6 +261,25 @@ SERVE = {"phi4-mini-3.8b": ("flash_attention", 32),
          "xlstm-1.3b": ("slstm_scan", 6)}
 SERVE_ARGS = {"requests": 8, "slots": 4, "prompt_len": 1024, "gen_len": 32}
 LM_CPU_TOL = 1e-3  # card vs CPU, float32 logits (sums in other orders)
+# the simulator phase: examples/mlless_pmf.py's jobs at ML-10M width, P
+# workers of SIM_B ratings, Nesterov, v 0.7, an 8,192-rating eval batch
+SIM_P, SIM_B, SIM_STEPS, SIM_EVAL = 8, 2048, 120, 8192
+SIM_P_MAX = 24  # the largest P of benchmarks/fig10_scalability.py
+SIM_LR, SIM_V, SIM_SLACK, SIM_RMSE_TARGET = 0.08, 0.7, 3, 0.95
+SIM_JOBS = (  # (label, platform, consistency, tuner)
+    ("mlless_bsp", "MLLESS", "BSP", False),
+    ("mlless_isp", "MLLESS", "ISP", False),
+    ("mlless_all", "MLLESS", "ISP", True),
+    ("serverful", "SERVERFUL", "BSP", False),
+    ("pywren", "PYWREN", "BSP", False),
+    ("mlless_ssp", "MLLESS", "SSP", False),
+)
+# the stacked leaves B1 and B6 see: P = 8's U and M, P = 24's M
+SIM_STACKED = ((SIM_P, 10681, 20), (SIM_P, 20, 71567),
+               (SIM_P_MAX, 20, 71567))
+# card vs CPU: tests/test_torch_simulator.py's CARD_LOSS_RTOL and
+# CARD_COMM_RTOL (other summation orders; a mask at its threshold can flip)
+SIM_CPU_LOSS_RTOL, SIM_CPU_COMM_RTOL = 1e-5, 1e-3
 
 
 
@@ -2050,6 +2083,249 @@ def time_lm_kernels(dev, flush) -> dict:
     return out
 
 
+# -- phase 5b: the serverless training simulator ----------------------------
+
+
+class SimPMF:
+    """examples/mlless_pmf.py's PMF job at ML-10M width: the data, one
+    seeded replica on the CPU, the minibatches (rows of the step's seeded
+    draw, P x SIM_B) and the eval RMSE of SIM_EVAL held-out ratings."""
+
+    def __init__(self):
+        import numpy as np
+        import torch
+
+        from repro_torch.data import synthetic
+        from repro_torch.models import pmf
+
+        ml = synthetic.MovieLensLikeConfig(
+            n_users=ML10M["n_users"], n_movies=ML10M["n_movies"],
+            n_ratings=ML10M["n_ratings"], rank=ML10M["rank"], seed=0)
+        self.ml = ml
+        self.users, self.movies, self.ratings = synthetic.make_movielens(ml)
+        self.cfg = pmf.PMFConfig(ml.n_users, ml.n_movies, ml.rank)
+        self.params0 = pmf.init(self.cfg, torch.Generator().manual_seed(0))
+        self.eidx = np.random.default_rng(0).choice(
+            len(self.ratings), SIM_EVAL, replace=False)
+
+    def make(self, dev, P: int, platform: str, model: str):
+        """``(simulator, batch_fn, eval_fn)`` on ``dev``."""
+        from functools import partial
+
+        import numpy as np
+
+        from repro_torch import optim
+        from repro_torch.core import consistency as cons
+        from repro_torch.core import simulator as sim
+        from repro_torch.core.isp import ISPConfig
+        from repro_torch.data import synthetic
+        from repro_torch.models import pmf
+
+        rank, n_users = self.ml.rank, self.ml.n_users
+        s = sim.ServerlessSimulator(
+            sim.SimulatorConfig(
+                n_workers=P, platform=sim.Platform[platform],
+                consistency=cons.ConsistencyConfig(
+                    model=cons.Model[model], isp=ISPConfig(v=SIM_V),
+                    slack=SIM_SLACK),
+                sparse_model=True),
+            loss_fn=partial(pmf.loss_fn, self.cfg),
+            optimizer=optim.make("nesterov", SIM_LR), params=self.params0,
+            flops_per_sample=6 * rank * 3,
+            update_nnz_fn=lambda b: 2 * rank * min(b, n_users), device=dev)
+        ev = synthetic.ratings_batch(self.users, self.movies, self.ratings,
+                                     self.eidx, dev)
+
+        def batch_fn(step: int, n: int):
+            idx = np.random.default_rng(step).integers(
+                0, len(self.ratings), size=(n, SIM_B))
+            return synthetic.ratings_batch(self.users, self.movies,
+                                           self.ratings, idx, dev)
+
+        return s, batch_fn, lambda p: float(pmf.rmse(p, ev))
+
+
+def check_sim_kernels(dev, err: dict) -> None:
+    """B1 and B6 at the simulator's stacked leaves (SIM_STACKED: P = 8's U
+    and M, P = 24's M) against their plain versions, bit for bit: u 5%
+    dense as a PMF update is, x and r dense, some x exactly 0 (the floor)
+    and -0.0."""
+    import torch
+
+    from repro_torch.kernels import ref, significance, wire_pack
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    v_t = 0.7 / 3 ** 0.5
+    for shape in SIM_STACKED:
+        u = torch.randn(shape, generator=gen, device=dev) * 1e-2
+        u[torch.rand(shape, generator=gen, device=dev) >= 0.05] = 0.0
+        x = torch.randn(shape, generator=gen, device=dev) * 0.2
+        x[..., ::97] = 0.0
+        x[..., 1::101] = -0.0
+        r = torch.randn(shape, generator=gen, device=dev) * 1e-2
+        sig, res = significance.significance_filter(u, x, r, v_t)
+        want = ref.significance_ref(u, x, r, v_t)
+        require(_same(sig, want[0]) and _same(res, want[1]),
+                f"significance_filter at {shape}: differs from its plain "
+                "version")
+        nnz = wire_pack.wire_nnz(sig.reshape(-1))
+        want_nnz = ref.wire_nnz_ref(sig.reshape(-1))
+        require(int(nnz) == int(want_nnz),
+                f"wire_nnz at {shape}: {int(nnz)} != {int(want_nnz)}")
+        err["significance_filter"] = max(err["significance_filter"],
+                                         _abs_err(sig, want[0]),
+                                         _abs_err(res, want[1]))
+        log("sim-kernels", shape=json.dumps(list(shape)),
+            elements=u.numel(), nnz=int(nnz), bit_exact=True)
+        del u, x, r, sig, res, want
+    torch.cuda.empty_cache()
+
+
+def _sim_job(data: SimPMF, dev, label: str, platform: str, model: str,
+             tuned: bool, P: int = SIM_P) -> tuple:
+    """One simulator job of SIM_STEPS steps (or until the RMSE target) on
+    the card; its launches are counted from 0. Returns (result, launches,
+    simulator)."""
+    import torch
+
+    from repro_torch.core.autotuner import AutoTunerConfig, ScaleInAutoTuner
+    from repro_torch.kernels import build
+
+    s, batch_fn, eval_fn = data.make(dev, P, platform, model)
+    tuner = (ScaleInAutoTuner(AutoTunerConfig(sched_interval_s=2.0,
+                                              delta_s=1.0), P)
+             if tuned else None)
+    torch.cuda.synchronize(dev)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = s.run(batch_fn, SIM_B, SIM_STEPS, loss_threshold=SIM_RMSE_TARGET,
+                eval_fn=eval_fn, tuner=tuner)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    n = len(res.records)
+    rmse = [r.loss for r in res.records]
+    comm = [r.comm_fraction for r in res.records]
+    log("simulator", job=label, platform=platform, consistency=model, P=P,
+        B=SIM_B, steps=n, converged=res.converged_at_s is not None,
+        time_to_loss_s=res.converged_at_s or res.total_wall_s,
+        cost_usd=res.total_cost, first_rmse=rmse[0], final_rmse=rmse[-1],
+        final_workers=res.summary["final_workers"],
+        mean_comm_frac=sum(comm) / n, wall_s_per_step=secs / n,
+        seconds=secs, launches=json.dumps(launches))
+    require(all(math.isfinite(v) for v in rmse) and rmse[-1] < rmse[0],
+            f"simulator {label}: RMSE {rmse[0]} -> {rmse[-1]}")
+    want = ({"significance_filter": 2 * n, "wire_nnz": 2 * n}
+            if model == "ISP" else {})
+    require(launches == want, f"simulator {label}: launches {launches}, "
+            f"not {want}")
+    if model == "BSP":
+        from repro_torch import tree as tree_lib
+
+        same = all(torch.equal(x[0], x[p]) for x in
+                   tree_lib.leaves(s.replicas) for p in range(1, P))
+        require(same, f"simulator {label}: replicas differ under BSP")
+    if model == "ISP":
+        require(all(0.0 < c < 1.0 for c in comm),
+                f"simulator {label}: comm_frac outside (0, 1)")
+    return res, launches, s
+
+
+def sim_card_vs_cpu(data: SimPMF, dev) -> None:
+    """The port at full width, P = 8, 3 ISP steps on the card and on the
+    CPU from the same replica and batches: every step's eval RMSE within
+    SIM_CPU_LOSS_RTOL and comm_frac within SIM_CPU_COMM_RTOL relative
+    (tests/test_torch_simulator.py's CARD_LOSS_RTOL, CARD_COMM_RTOL)."""
+    import torch
+
+    out = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        s, batch_fn, eval_fn = data.make(d, SIM_P, "MLLESS", "ISP")
+        t0 = time.perf_counter()
+        res = s.run(batch_fn, SIM_B, 3, eval_fn=eval_fn)
+        out[name] = ([r.loss for r in res.records],
+                     [r.comm_fraction for r in res.records],
+                     time.perf_counter() - t0)
+        del s
+    torch.cuda.empty_cache()
+    (lc, cc, tc), (lp, cp, tp) = out["cuda"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    comm_rel = max(abs(a - b) / abs(b) for a, b in zip(cc, cp))
+    log("reference", what="simulator card vs CPU", P=SIM_P, steps=3,
+        rmse_cuda=json.dumps(lc), rmse_cpu=json.dumps(lp),
+        comm_frac_cuda=json.dumps(cc), comm_frac_cpu=json.dumps(cp),
+        max_rel_diff_rmse=loss_rel, max_rel_diff_comm_frac=comm_rel,
+        first_step_comm_frac_equal=cc[0] == cp[0],
+        tolerance_rmse=SIM_CPU_LOSS_RTOL, tolerance_comm=SIM_CPU_COMM_RTOL,
+        seconds_cuda=tc, seconds_cpu=tp)
+    require(loss_rel <= SIM_CPU_LOSS_RTOL and comm_rel <= SIM_CPU_COMM_RTOL,
+            f"simulator card vs CPU: RMSE {loss_rel}, comm_frac {comm_rel} "
+            "relative")
+
+
+def simulator_phase(dev, err: dict) -> dict:
+    """examples/mlless_pmf.py's five jobs, an SSP job (slack SIM_SLACK) and
+    an ISP job at P = SIM_P_MAX on the card at ML-10M width; MLLess + ISP
+    twice, bit for bit; B1 and B6 at the stacked shapes; the card against
+    the CPU; one steady ISP step under torch.profiler. Returns the jobs'
+    summed launches."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    check_sim_kernels(dev, err)
+    data = SimPMF()
+    total: dict = {}
+
+    def count(launches: dict) -> None:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for label, platform, model, tuned in SIM_JOBS:
+        res, launches, s = _sim_job(data, dev, label, platform, model, tuned)
+        count(launches)
+        if label == "mlless_isp":
+            first = [(r.loss, r.comm_fraction) for r in res.records]
+            del s
+            res, launches, s = _sim_job(data, dev, label + "_rerun",
+                                        platform, model, tuned)
+            count(launches)
+            again = [(r.loss, r.comm_fraction) for r in res.records]
+            log("simulator", job="mlless_isp_rerun", bit_identical=first ==
+                again)
+            require(first == again, "simulator mlless_isp: a rerun's losses "
+                    "or comm_frac differ")
+            # one steady ISP step (its batch, the step, the eval) profiled
+            _, batch_fn, eval_fn = data.make(dev, SIM_P, platform, model)
+            build.reset_launches()
+            prof = _profile_steps(lambda: s.run(batch_fn, SIM_B, 1,
+                                                eval_fn=eval_fn), dev)
+            step_launches = dict(build.LAUNCHES)
+            require(step_launches == {"significance_filter": 2,
+                                      "wire_nnz": 2},
+                    f"simulator profiled step: launches {step_launches}")
+            if prof["device_ms"] <= 0:
+                log("sim-profile", device_ms_per_step="not measured",
+                    note="the profiler reported no device time")
+            else:
+                log("sim-profile", job=label, P=SIM_P,
+                    wall_ms_per_step=prof["wall_ms"],
+                    device_ms_per_step=prof["device_ms"],
+                    busy_share=prof["device_ms"] / prof["wall_ms"],
+                    device_ops_per_step=prof["ops"],
+                    top=json.dumps(prof["top"]))
+        del s
+        torch.cuda.empty_cache()
+    _, launches, s = _sim_job(data, dev, f"mlless_isp_p{SIM_P_MAX}",
+                              "MLLESS", "ISP", False, P=SIM_P_MAX)
+    count(launches)
+    del s
+    torch.cuda.empty_cache()
+    sim_card_vs_cpu(data, dev)
+    return total
+
+
 # -- phase 6: times ------------------------------------------------------------
 
 
@@ -2546,19 +2822,22 @@ def main() -> int:
     card_vs_cpu(dev)
     profile_serve(dev)
     done("profiles and references")
+    sim_launches = simulator_phase(dev, err)
+    done("simulator")
     sent = [r["sent_fraction"] for r in runs["pmf_bitmap"][1]["history"]]
     times = time_kernels(dev, density=sum(sent) / len(sent))
     profile_step(dev, steady(runs["pmf_bitmap"][1], 5)["step_s"])
     done("times")
 
     # launches: every main-path leg and serving run, each counted from 0
-    # in fresh processes
+    # in fresh processes, and the simulator's jobs, each from 0
     launches = {k: 0 for k in KERNELS}
     counted = [c for _, res in runs.values()
                for c in res["kernel_launches_by_worker"].values()]
     counted += [res["kernel_launches"] for res in served.values()]
     counted += [pods[label]["kernel_launches"] for label, _ in POD_LEGS]
     counted += [res["kernel_launches"] for res in flats.values()]
+    counted.append(sim_launches)
     for counts in counted:
         for k, v in counts.items():
             launches[k] += v

@@ -4,16 +4,18 @@ Both packages flatten a tree in the same leaf order and name every leaf by
 the same ``/``-joined path (``repro_torch.tree``), so state crosses as a
 plain list of numpy leaves: ``jax.tree_util.tree_leaves(x)`` converted
 with ``numpy.asarray`` on one side, ``from_leaves`` onto a port template
-on the other. Params, optimizer state and ISP residual all cross this way.
+on the other. Params, optimizer state and ISP residual all cross this way,
+and so does the simulator's stacked state (``load_simulator_state``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
 from repro_torch import tree as tree_lib
+from repro_torch.core import consistency as cons
 from repro_torch.wire.codec import to_numpy, to_tensor
 
 PyTree = Any
@@ -47,3 +49,28 @@ def write_params0(path: str, keys: Sequence[str],
     name under ``"params0"`` (``runtime.workload``)."""
     np.savez(path, **{k: np.asarray(a) for k, a in zip(keys, arrays)})
     return path
+
+
+def load_simulator_state(sim, replicas: Sequence[Any],
+                         opt_state: Sequence[Any],
+                         isp_state: Optional[Sequence[Any]] = None,
+                         ssp_state: Optional[Sequence[Any]] = None) -> None:
+    """Carry the JAX simulator's training state into the port's ``sim``
+    (a ``core.simulator.ServerlessSimulator`` of the same config), so both
+    go on with the same run. Each argument is the leaves of the JAX
+    simulator's attribute of that name, in leaf order: the stacked
+    replicas; the vmapped ``OptState`` (``step`` of shape (P,), then the
+    moments); ``ISPWorkerState`` (residuals, then ``step``) under ISP;
+    ``SSPState`` (queue, then ``step``) under SSP. The steps of the two
+    consistency states become host ints, as the port keeps them."""
+    dev = sim.device
+    sim.replicas = from_leaves(sim.replicas, replicas, dev)
+    sim.opt_state = from_leaves(sim.opt_state, opt_state, dev)
+    if sim.isp_state is not None:
+        *res, step = isp_state
+        sim.isp_state = cons.ISPWorkerState(
+            from_leaves(sim.isp_state.residual, res, dev), int(step))
+    if sim.ssp_state is not None:
+        *queue, step = ssp_state
+        sim.ssp_state = cons.SSPState(
+            from_leaves(sim.ssp_state.queue, queue, dev), int(step))

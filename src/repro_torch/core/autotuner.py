@@ -28,7 +28,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import curves
 
 
@@ -176,3 +178,22 @@ class ScaleInAutoTuner:
             else self.reference.theta.tolist(),
             "d_P": self.d_P,
         }
+
+
+def evict_and_reintegrate(replicas, evicted: int, active_mask):
+    """The simulator's eviction (paper §4.2): the leaving worker publishes
+    its replica and every active worker averages it into its own,
+
+        x_p' <- (x_evicted + x_p') / 2
+
+    (the pool size does not enter, unlike ``dist.elastic.
+    reintegrate_replicas``). ``replicas`` leaves have a leading worker
+    axis (P, ...); ``active_mask`` is a bool (P,) tensor on their device
+    with the evicted worker already cleared. The evicted slot is left in
+    place, inert."""
+
+    def leaf(x):
+        mask = active_mask.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(mask, 0.5 * (x + x[evicted][None]), x)
+
+    return tree_lib.tree_map(leaf, replicas)

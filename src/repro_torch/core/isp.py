@@ -24,6 +24,8 @@ from repro_torch import tree as tree_lib
 
 PyTree = Any
 
+_EPS = 1e-12  # the |x| = 0 guard of ``residual_relative_norm``
+
 
 @dataclasses.dataclass(frozen=True)
 class ISPConfig:
@@ -47,6 +49,11 @@ class ISPConfig:
 class ISPState(NamedTuple):
     residual: PyTree
     step: int  # 1-indexed
+
+
+def init_state(params: PyTree) -> ISPState:
+    """Zero residual with the structure of ``params``, at step 1."""
+    return ISPState(tree_lib.tree_map(torch.zeros_like, params), 1)
 
 
 def significance_split(acc: torch.Tensor, x: torch.Tensor, v_t: float,
@@ -88,6 +95,29 @@ def communicated_fraction(masks: PyTree) -> float:
         hit += int(torch.count_nonzero(m))
         total += m.numel()
     return float(np.float32(hit) / np.float32(max(total, 1)))
+
+
+def communicated_bytes(masks: PyTree, bytes_per_entry: int = 8) -> float:
+    """Bytes of a sparse (value + index) encoding of the significant
+    entries: ``bytes_per_entry`` per hit, in float32 as the JAX package
+    computes it. A mask tree or a tree of the significant updates, as
+    ``communicated_fraction`` takes."""
+    hit = sum(int(torch.count_nonzero(m)) for m in tree_lib.leaves(masks))
+    return float(np.float32(hit) * np.float32(bytes_per_entry))
+
+
+def dense_bytes(params: PyTree, bytes_per_entry: int = 4) -> float:
+    """Bytes of a dense encoding of a full update (the BSP cost)."""
+    return float(sum(x.numel() for x in tree_lib.leaves(params))
+                 ) * bytes_per_entry
+
+
+def residual_relative_norm(state: ISPState, params: PyTree) -> float:
+    """``max_i |r_i| / max(|x_i|, 1e-12)`` over every leaf: the tightest
+    per-parameter deviation bound the residual currently witnesses."""
+    return max(float(torch.max(r.abs() / torch.clamp_min(x.abs(), _EPS)))
+               for r, x in zip(tree_lib.leaves(state.residual),
+                               tree_lib.leaves(params)))
 
 
 def flush(state: ISPState):

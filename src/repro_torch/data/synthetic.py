@@ -1,8 +1,10 @@
 """Synthetic, statistically-matched stand-ins for the paper's datasets
 (copy of ``repro.data.synthetic``'s generators).
 
-Pure numpy, so the same seed gives the same arrays, bit for bit, in both
-packages.
+The generators are pure numpy, so the same seed gives the same arrays,
+bit for bit, in both packages. The batch helpers at the end put a
+selection of those arrays on an explicit device as the port's model
+batches (int64 indices, the workloads' convention).
 """
 
 from __future__ import annotations
@@ -10,6 +12,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.models.lr import DenseBatch, SparseBatch
+from repro_torch.models.pmf import RatingsBatch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,3 +116,30 @@ def make_movielens(
     r = 2.75 + 1.5 * np.tanh(base) + rng.normal(0, cfg.rating_noise, cfg.n_ratings)
     r = np.clip(np.round(r * 2) / 2, 0.5, 5.0).astype(np.float32)
     return u.astype(np.int32), m.astype(np.int32), r
+
+
+
+# -- minibatches on a device (``repro.data.synthetic``'s batch helpers) -------
+
+
+def _on(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device_lib.resolve(device), dtype=dtype)
+
+
+def dense_batch(x: np.ndarray, y: np.ndarray, sl, device) -> DenseBatch:
+    """The rows ``sl`` selects (a slice or an index array of any shape)."""
+    return DenseBatch(x=_on(x[sl], device), y=_on(y[sl], device))
+
+
+def sparse_batch(idx: np.ndarray, val: np.ndarray, y: np.ndarray, sl,
+                 device) -> SparseBatch:
+    return SparseBatch(idx=_on(idx[sl], device, torch.int64),
+                       val=_on(val[sl], device), y=_on(y[sl], device))
+
+
+def ratings_batch(u: np.ndarray, m: np.ndarray, r: np.ndarray, sl,
+                  device) -> RatingsBatch:
+    return RatingsBatch(user=_on(u[sl], device, torch.int64),
+                        movie=_on(m[sl], device, torch.int64),
+                        rating=_on(r[sl], device))

@@ -6,7 +6,8 @@ tensors. ``adam_isp_tree`` is the worker's whole Adam + ISP
 step: B2 on every leaf, and with scale 1 the in-process trainer's
 ``isp`` Adam step; ``adam_tree`` is its ``bsp`` Adam step: B3 on every
 leaf.
-``fused_adam`` and ``fused_adam_sig`` apply B3 and B2 leaf by leaf over
+``sent_fraction`` is the communicated share of an ISP step: B6 on every
+leaf. ``fused_adam`` and ``fused_adam_sig`` apply B3 and B2 leaf by leaf over
 trees of one structure (a single tensor is a tree of one leaf). Each runs
 the kernel for CUDA leaves and its plain version for CPU leaves.
 """
@@ -22,6 +23,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.fused_adam import adam_sig_update, adam_update
 from repro_torch.kernels.significance import significance_filter
+from repro_torch.kernels.wire_pack import wire_nnz
 
 PyTree = Any
 
@@ -41,6 +43,24 @@ def significance_tree(updates: PyTree, params: PyTree, residual: PyTree,
                            tree_lib.leaves(residual))
     ]
     return _unzip(params, out, 2)
+
+
+def sent_fraction(sig: PyTree) -> torch.Tensor:
+    """The share of entries with ``sig != 0`` as a 0-d float32 tensor
+    (``core.isp.communicated_fraction`` of the JAX step's masks): B6
+    counts each leaf's hits on the card (its plain version on the CPU), the
+    counts add up as integers and the sum is divided once in float32, so
+    nothing here waits for the card."""
+    leaves = tree_lib.leaves(sig)
+    dev = leaves[0].device
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    total = 0
+    for x in leaves:
+        if x.numel():
+            hits = hits + wire_nnz(x.reshape(-1))
+        total += x.numel()
+    return hits.float() / torch.full((), max(float(total), 1.0),
+                                     dtype=torch.float32, device=dev)
 
 
 def flash_attention(q, k, v, causal: bool = True, window=None,

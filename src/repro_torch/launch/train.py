@@ -76,7 +76,6 @@ from repro_torch.dist import elastic as dist_elastic
 from repro_torch.dist.compression import (CompressionConfig, apply_combined,
                                           isp_compressed_step)
 from repro_torch.kernels import build, ops
-from repro_torch.kernels.wire_pack import wire_nnz
 from repro_torch.models.config import (ArchConfig, BlockSpec, FF, Mixer,
                                        uniform_groups)
 from repro_torch.models.transformer import LM
@@ -132,23 +131,6 @@ def _value_and_grad(lm: LM, params: PyTree, batch: dict):
     return loss.detach(), grads
 
 
-def _sent_fraction(sig: PyTree) -> torch.Tensor:
-    """The share of entries with ``sig != 0`` as a 0-d float32 tensor
-    (``core.isp.communicated_fraction`` of the JAX step's masks): B6
-    counts each leaf's hits on the card (its plain version on the CPU), so
-    nothing here waits for the card."""
-    leaves = tree_lib.leaves(sig)
-    dev = leaves[0].device
-    hits = torch.zeros((), dtype=torch.float32, device=dev)
-    total = 0
-    for x in leaves:
-        if x.numel():
-            hits = hits + wire_nnz(x.reshape(-1)).float()
-        total += x.numel()
-    return hits / torch.full((), max(float(total), 1.0), dtype=torch.float32,
-                             device=dev)
-
-
 def make_step(lm: LM, optimizer, isp: ISPConfig | None, clip: float = 1.0):
     """One train step of the ``bsp`` (``isp`` None) or ``isp`` mode (the
     JAX package's ``make_step``).
@@ -194,7 +176,7 @@ def make_step(lm: LM, optimizer, isp: ISPConfig | None, clip: float = 1.0):
             sig, residual = ops.significance_tree(updates, params, residual,
                                                   v_t, isp.absolute_floor)
         params = apply_updates(params, sig)
-        return params, opt_state, residual, loss, _sent_fraction(sig)
+        return params, opt_state, residual, loss, ops.sent_fraction(sig)
 
     return step_fn
 
