@@ -80,22 +80,44 @@ Phases (any failure exits non-zero; nothing is caught):
    each and their ratio are logged, with their waits counted directly
    (worker-steps longer than half the delay, and their seconds), and both
    must finish with no dup mismatch;
+4b. chaos — after the duel, alone, the chaos leg through the
+   CLI (``--chaos``, so the supervisor runs out of process under
+   ``run_job_resilient``): PMF-Nesterov bitmap at ML-10M width, 4 workers,
+   2 tcp shards, 10 steps in one invocation, a checkpoint every 2, under
+   one event of each of the nine kinds (``CHAOS_PLAN``: worker 3 delayed
+   at every step from 5 on, a transport stall, delay and reset, worker 1
+   SIGKILLed, shard 1's WAL corrupted (the rollback SIGKILLs the pool), a
+   checkpoint write failed, the coordinator SIGKILLed, and at step 6 the
+   supervisor itself). It must finish every step with the full pool and
+   no dup mismatch, every event must fire (none skipped, each with its
+   recovery), the supervisor must be restarted and resumed and re-adopt
+   the four live workers and both shards by pid, worker 1 must be
+   respawned at -9, every worker must launch B1, B4 and B5, the digest
+   must be pmf_bitmap's, and no process of the job may be left; each
+   recovery, the quarantined WAL bytes and the rollback are logged; its
+   workers run under ``--hostperf`` (``launch/hostperf.py``'s env);
 5. invariants — for PMF-Nesterov and for LR, the bitmap run's final-params
    digest must be identical with 2 broker shards, on a rerun, and with
    ``--wire-impl numpy`` (which must also give identical wire bytes); the
    PMF-Adam digest with 2 broker shards; LR's 2-shard run and rerun and
    PMF-Adam's 2-shard run at 5 steps an invocation, so that the B2 legs,
    run in one invocation, must equal a run across an invocation boundary
-   (PMF-Nesterov's leg crosses one itself); the SSP leg's digest and wire
-   bytes at 2 shards over shm (5 steps an invocation: fresh segments for
+   (PMF-Nesterov's leg crosses one itself, and its rerun does too). These
+   four runs across a boundary are pre-warmed (``--prewarm``): each must
+   equal its cold leg's digest and per-step wire bytes and, for PMF-
+   Nesterov, its exact launches, with a successor promoted on every slot
+   (overlap >= 0; readiness at promotion and the walls logged); the SSP
+   leg's digest and wire bytes at 2 shards over shm (5 steps an invocation: fresh segments for
    each) and with worker 1 SIGKILLed at step 7; the PMF bitmap leg's at 2
    shards over shm with shard 1 SIGKILLed at step 4 (one broker respawn,
    its segments served again); a small job of each workload on the card
    must agree with the same job on the CPU, 3 steps an invocation (final
    eval RMSE or BCE within 1e-3 relative: the two devices sum in different
-   orders). These runs go side by side, five at a time: they are checked
-   for bits, not timed. Then the LM serving paths, ``python -m
-   repro_torch.launch.serve --no-smoke`` at full width for phi4-mini-3.8b
+   orders). PMF-Nesterov's pre-warmed rerun runs alone, so that its wall
+   reads beside pmf_bitmap's; the other runs go side by side, five at a
+   time: they are checked for bits, not timed. Then the LM serving paths,
+   ``python -m repro_torch.launch.serve --no-smoke`` at full width for
+   phi4-mini-3.8b
    (B7 in its 32 attention layers) and xlstm-1.3b (B8 in its 6 sLSTM
    blocks), 8 requests, 4 slots, prompt 1024, 32 new tokens each, one after
    the other in fresh processes: B7 must launch 32 times and B8 6 times
@@ -946,31 +968,11 @@ def _train_cmd(run_dir: str, job: dict, *, workers: int, steps: int,
                inv_steps: int, scheme: str, impl: str = "cuda",
                n_brokers: int = 1, device: str = "cuda",
                transport: str = "tcp", consistency: str = "isp",
-               slack: int = 3, faults: dict = None) -> list:
-    """The CLI a user runs; with ``faults`` (the supervisor's fault knobs,
-    which the CLI does not expose) the same job through
-    ``supervisor.run_job`` with the CLI's settings."""
+               slack: int = 3, checkpoint_every: int = 100,
+               chaos: str = None, prewarm: bool = False,
+               hostperf: bool = False) -> list:
+    """The CLI a user runs."""
     out = os.path.join(run_dir, "result.json")
-    if faults:
-        cfg = dict(run_dir=run_dir, workload=job["workload"],
-                   workload_cfg=job["wcfg"], device=device,
-                   n_workers=workers, total_steps=steps,
-                   invocation_steps=inv_steps, checkpoint_every=100,
-                   optimizer=job["optimizer"], lr=job["lr"], isp_v=0.7,
-                   wire_scheme=scheme, wire_impl=impl, n_brokers=n_brokers,
-                   transport=transport, consistency=consistency,
-                   slack=slack, **faults)
-        code = ("import json, sys\n"
-                "from repro_torch.runtime.supervisor import FaaSJobConfig,"
-                " run_job\n"
-                "cfg = json.loads(sys.argv[1])\n"
-                "for k in ('kill_worker_at_step', 'kill_broker_at_step'):\n"
-                "    if cfg.get(k) is not None:\n"
-                "        cfg[k] = tuple(cfg[k])\n"
-                "res = run_job(FaaSJobConfig(**cfg))\n"
-                "with open(sys.argv[2], 'w') as f:\n"
-                "    json.dump(res, f, default=str)\n")
-        return [sys.executable, "-c", code, json.dumps(cfg), out]
     return [sys.executable, "-m", "repro_torch.launch.train",
             "--runtime", "faas", "--workload", job["workload"],
             "--workload-cfg", json.dumps(job["wcfg"]),
@@ -980,8 +982,12 @@ def _train_cmd(run_dir: str, job: dict, *, workers: int, steps: int,
             "--wire-scheme", scheme, "--wire-impl", impl,
             "--n-brokers", str(n_brokers), "--device", device,
             "--transport", transport, "--consistency", consistency,
-            "--slack", str(slack), "--checkpoint-every", "100",
-            "--run-dir", run_dir, "--out", out]
+            "--slack", str(slack),
+            "--checkpoint-every", str(checkpoint_every),
+            "--run-dir", run_dir, "--out", out,
+            *(["--chaos", chaos] if chaos else []),
+            *(["--prewarm"] if prewarm else []),
+            *(["--hostperf"] if hostperf else [])]
 
 
 def run_trains(jobs: list, timeout_s: float = 300.0,
@@ -1099,6 +1105,24 @@ def _leg_opts(**kw) -> dict:
                 **kw)
 
 
+def startup_split(run_dir: str) -> dict:
+    """Mean seconds of each part of the workers' cold starts in a run (the
+    ``startup`` line each worker invocation prints to its log: import,
+    hello, workload with the CUDA context, a successor's warm-up and gate
+    wait, restore), with the invocations counted."""
+    rows = []
+    logdir = os.path.join(run_dir, "logs")
+    for name in os.listdir(logdir):
+        if name.startswith("w"):
+            with open(os.path.join(logdir, name)) as f:
+                rows += [json.loads(line[len("startup "):]) for line in f
+                         if line.startswith("startup ")]
+    parts = {k for r in rows for k in r}
+    return {"invocations": len(rows), **{
+        k: round(sum(r[k] for r in rows if k in r)
+                 / sum(1 for r in rows if k in r), 3) for k in sorted(parts)}}
+
+
 def left_in_dev_shm(res: dict) -> list:
     """The job's shared-memory segments still in /dev/shm (none may be)."""
     return [n for n in os.listdir("/dev/shm")
@@ -1149,6 +1173,7 @@ def main_path(tmp: str) -> dict:
             sent_fraction_mean=sum(sent) / len(sent),
             phase_s_mean=json.dumps(res["phase_s_mean"]),
             steady=json.dumps(steady(res, opts["inv_steps"])),
+            startup=json.dumps(startup_split(d)),
             launches=json.dumps(launches))
         runs[label] = (d, res)
     # SSP is not quietly ISP; shm is tcp bit for bit
@@ -1177,7 +1202,9 @@ def main_path(tmp: str) -> dict:
 # Fig. 9's live half (benchmarks/fig9_ssp_vs_isp.py:57-59) at ML-10M width:
 # worker 0 hiccups 0.5 s every 12 steps, once under ISP and once under SSP
 DUEL_STEPS = 24
-DUEL_STRAGGLER = {"worker": 0, "delay_s": 0.5, "every": 12}
+# the straggler: worker 0 sleeps 0.5 s after its compute at steps 12 and 24
+DUEL_STRAGGLER = {"kind": "compute_delay", "step": 0, "worker": 0,
+                  "delay_s": 0.5, "every": 12}
 
 
 def _nonstraggler_steps(history: list) -> list:
@@ -1204,7 +1231,7 @@ def straggler_duel(tmp: str) -> dict:
         res, = run_trains([(d, PMF, dict(
             workers=4, steps=DUEL_STEPS, inv_steps=DUEL_STEPS,
             scheme="bitmap", consistency=consistency, slack=3,
-            faults={"straggler": DUEL_STRAGGLER}))])
+            chaos=f"0:{json.dumps([DUEL_STRAGGLER])}"))])
         require(res["steps"] == DUEL_STEPS and res["final_pool"] == 4,
                 f"duel {consistency}: steps={res['steps']}")
         require(res["dup_mismatches"] == 0,
@@ -1227,6 +1254,172 @@ def straggler_duel(tmp: str) -> dict:
     return p95
 
 
+# the chaos leg: the PMF main path at ML-10M width under one event of each
+# of the nine kinds, each at step 5 or earlier and the supervisor's own
+# death at a step of its own; wal_corrupt's rollback respawns the pool in
+# the wave of worker 1's kill, and ckpt_enospc fails a save of that wave.
+# Worker 3 straggles by CHAOS_DELAY_S at every step from 5 on, and the
+# barrier holds the pool with it: the steps after the supervisor's death
+# (7 to 10, about 4 x 5 s) outlast its restart (8-12 s on the card's
+# host), so the successor finds all four workers alive and adopts them
+CHAOS_SEED = 24
+CHAOS_DELAY_S = 5.0
+CHAOS_PLAN = (
+    {"kind": "compute_delay", "step": 5, "worker": 3,
+     "delay_s": CHAOS_DELAY_S, "every": 1},
+    {"kind": "transport_stall", "step": 3, "worker": 0, "delay_s": 0.3},
+    {"kind": "transport_delay", "step": 3, "worker": 2, "delay_s": 0.2},
+    {"kind": "worker_kill", "step": 4, "worker": 1},
+    {"kind": "wal_corrupt", "step": 4, "shard": 1},
+    {"kind": "ckpt_enospc", "step": 4, "worker": 0},
+    {"kind": "transport_reset", "step": 5, "worker": 2},
+    {"kind": "broker_kill", "step": 5, "shard": 0},
+    {"kind": "supervisor_kill", "step": 6},
+)
+
+
+def _job_processes(run_dir: str) -> list:
+    """(pid, command) of every live (not zombie) process of a FaaS job
+    run in ``run_dir``: its supervisor and brokers name the directory on
+    their command lines, its workers one of the brokers' addresses."""
+    bdir = os.path.join(run_dir, "broker")
+    addrs = []
+    for name in os.listdir(bdir):
+        if name.endswith(".port"):
+            with open(os.path.join(bdir, name)) as f:
+                addrs.append(f.read().strip())
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[-1].split()[0]
+        except OSError:
+            continue
+        words = set(cmd.replace(",", " ").split())
+        if ("repro_torch" in cmd and state != "Z"
+                and (run_dir + os.sep in cmd
+                     or any(a in words for a in addrs))):
+            found.append((int(pid), cmd))
+    return found
+
+
+def chaos_leg(tmp: str, runs: dict) -> dict:
+    """The chaos leg through the CLI (``--chaos``; the plan holds a
+    supervisor_kill, so the CLI drives the supervisor out of process
+    through ``run_job_resilient``): PMF-Nesterov bitmap at ML-10M width, 4
+    workers, 2 tcp shards, 10 steps in one invocation, a checkpoint every
+    2, its workers under ``--hostperf``, alone on the host. Requires every
+    step and the full pool with no dup mismatch, every event fired (none
+    skipped, each with its recovery), the supervisor restarted and resumed
+    with all four live workers and both shards re-adopted by pid, worker 1
+    respawned after its SIGKILL (-9),
+    B1, B4 and B5 on every worker, the digest of ``pmf_bitmap`` and no
+    process of the job left alive."""
+    d = os.path.join(tmp, "chaos")
+    plan = f"{CHAOS_SEED}:{json.dumps(list(CHAOS_PLAN))}"
+    res, = run_trains([(d, PMF, _leg_opts(
+        n_brokers=2, inv_steps=10, checkpoint_every=2, chaos=plan,
+        hostperf=True))])
+    left = _job_processes(d)
+    require(res["steps"] == 10 and res["final_pool"] == 4,
+            f"chaos: steps={res['steps']} pool={res['final_pool']}")
+    require(res["dup_mismatches"] == 0, "chaos: dup mismatches")
+    events = res["chaos_events"]
+    for e in events:
+        log("chaos", event=e["kind"], index=e["index"], step=e["step"],
+            worker=e.get("worker"), shard=e.get("shard"),
+            at_frontier=e.get("at_frontier"), recovery_s=e.get("recovery_s"),
+            skipped=e.get("skipped"),
+            quarantined_bytes=e.get("quarantined_bytes"),
+            rollback=json.dumps(e.get("rollback")),
+            readopted=json.dumps(e.get("readopted")))
+    fired = {e["index"] for e in events}
+    require(fired == set(range(len(CHAOS_PLAN))),
+            f"chaos: events {sorted(set(range(len(CHAOS_PLAN))) - fired)} "
+            "never fired")
+    for e in events:
+        require("skipped" not in e and e.get("recovery_s") is not None,
+                f"chaos: {e['kind']} skipped or unrecovered: {e}")
+    kill, = [e for e in events if e["kind"] == "supervisor_kill"]
+    require(res["supervisor_restarts"] >= 1
+            and res["supervisor_resumed"] >= 1
+            and kill.get("readopted") == {"workers": 4, "brokers": 2,
+                                          "successors_killed": 0},
+            "chaos: the supervisor was not restarted and resumed with the "
+            f"live pool re-adopted: {kill}")
+    require(any(r["worker"] == 1 and r["exit_code"] == -9
+                for r in res["respawns"]),
+            f"chaos: no respawn of worker 1 at -9: {res['respawns']}")
+    launches = res["kernel_launches_by_worker"]
+    require(sorted(launches) == ["0", "1", "2", "3"],
+            f"chaos: launch telemetry from workers {sorted(launches)}")
+    for w, counts in launches.items():
+        for name in PMF_LAUNCHES:
+            require(counts.get(name, 0) > 0,
+                    f"chaos: {name} launched 0 times on worker {w}")
+    dig, dig0 = digest(d, PMF), digest(runs["pmf_bitmap"][0], PMF)
+    rollback, = [e["rollback"] for e in events if e["kind"] == "wal_corrupt"]
+    log("chaos", leg="pmf_bitmap under the plan",
+        digest_equal=dig == dig0, wall_s=res["wall_s"],
+        wall_s_pmf_bitmap=runs["pmf_bitmap"][1]["wall_s"],
+        wal_quarantined_bytes=res["wal_quarantined_bytes"],
+        rollback=json.dumps(rollback),
+        respawns=json.dumps(res["respawns"]),
+        broker_respawns=json.dumps(res["broker_respawns"]),
+        supervisor_restarts=res["supervisor_restarts"],
+        hostperf=json.dumps(res["hostperf"]),
+        n_invocations=res["n_invocations"],
+        worker_seconds=res["bill"]["worker_seconds"],
+        startup=json.dumps(startup_split(d)),
+        launches=json.dumps(launches), processes_left=len(left))
+    require(res["hostperf"] is not None
+            and res["hostperf"]["xla_flags"] is None,
+            f"chaos: hostperf {res['hostperf']}")
+    require(dig == dig0, "chaos: digest differs from pmf_bitmap's")
+    require(not left, f"chaos: processes of the job still alive: {left}")
+    return res
+
+
+def check_prewarmed(label: str, d: str, res: dict, leg: str,
+                    cold: dict) -> None:
+    """A pre-warmed run (4 workers, 10 steps, 5 an invocation) against its
+    cold leg: exactly one successor promoted on every slot at the one
+    boundary, with an overlap >= 0, no cold process spawned for the second
+    invocation, and the leg's exact launches where it has them (the
+    warm-up's launches are not reported). Logs each slot's readiness at
+    promotion and both walls (the warm run's in the invariant pool, the
+    cold leg's alone)."""
+    overlaps = res["cold_start_overlaps"]
+    logs = set(os.listdir(os.path.join(d, "logs")))
+    log("prewarm", run=label, against=leg,
+        overlap_s=json.dumps([round(o["overlap_s"], 3) for o in overlaps]),
+        ready_at_promotion=json.dumps(
+            [o["ready_at_promotion"] for o in overlaps]),
+        wall_s=res["wall_s"], wall_s_cold=cold["wall_s"],
+        worker_seconds=res["bill"]["worker_seconds"],
+        worker_seconds_cold=cold["bill"]["worker_seconds"],
+        n_invocations=res["n_invocations"],
+        startup=json.dumps(startup_split(d)),
+        launches=json.dumps(res["kernel_launches_by_worker"]))
+    require(sorted(o["worker"] for o in overlaps) == [0, 1, 2, 3]
+            and all(o["invocation"] == 1 and o["overlap_s"] >= 0.0
+                    for o in overlaps),
+            f"{label}: prewarm overlaps {overlaps}")
+    cold_spawns = sorted(f"w{w:03d}.inv001.log" for w in range(4)
+                         if f"w{w:03d}.inv001.log" in logs)
+    require(not cold_spawns and all(f"w{w:03d}.inv001.pre.log" in logs
+                                    for w in range(4)),
+            f"{label}: a slot spawned its second invocation cold: "
+            f"{cold_spawns}")
+    if leg in EXACT:
+        for w, counts in res["kernel_launches_by_worker"].items():
+            got = {k: counts.get(k, 0) for k in EXACT[leg]}
+            require(got == EXACT[leg], f"{label}: worker {w} launched "
+                    f"{got}, not {EXACT[leg]}")
+
+
 def invariants(tmp: str, runs: dict) -> None:
     import torch
 
@@ -1246,10 +1439,14 @@ def invariants(tmp: str, runs: dict) -> None:
     # there the B2 path crosses an invocation boundary (a worker respawn,
     # Adam's moments and the residual restored onto the card) and must
     # equal its one-invocation leg bit for bit. PMF-Nesterov's leg itself
-    # runs 5 an invocation, so its invariants take one
+    # runs 5 an invocation, so its n_brokers=2 run takes one (the split
+    # across invocations) and its rerun 5. The runs that cross a boundary
+    # here are pre-warmed (--prewarm): each must equal its cold leg in
+    # digest, per-step wire bytes and, where the leg has them, exact
+    # launches, with every successor's overlap measured
     labels = (("n_brokers=2", {"n_brokers": 2}), ("rerun", {}),
               ("wire_impl=numpy", {"impl": "numpy"}))
-    across = {"pmf": (), "lr": ("n_brokers=2", "rerun")}
+    across = {"pmf": ("rerun",), "lr": ("n_brokers=2", "rerun")}
     # SSP and shm, checked in the same pool (PMF bitmap, 4 workers, 10
     # steps): (batch, label, the leg it
     # must equal, options, the worker and broker respawns it must record)
@@ -1257,16 +1454,18 @@ def invariants(tmp: str, runs: dict) -> None:
         ("pmf", "ssp n_brokers=2 shm", "pmf_ssp_bitmap",
          dict(SSP, n_brokers=2, **SHM), (0, 0)),
         ("lr", "ssp worker 1 SIGKILLed at step 7", "pmf_ssp_bitmap",
-         dict(SSP, faults={"kill_worker_at_step": (1, 7)}, **ONE), (1, 0)),
+         dict(SSP, chaos='0:[{"kind": "worker_kill", "step": 7, "worker": 1}]',
+              **ONE), (1, 0)),
         ("lr", "n_brokers=2 shm, shard 1 SIGKILLed at step 4", "pmf_bitmap",
-         dict(SHM, n_brokers=2, faults={"kill_broker_at_step": (1, 4)},
+         dict(SHM, n_brokers=2,
+              chaos='0:[{"kind": "broker_kill", "step": 4, "shard": 1}]',
               **ONE), (0, 1)),
     )
     batches = {}
     for name, (job, leg) in checks.items():
         jobs = [(os.path.join(tmp, f"inv_{name}_"
                               + label.replace("=", "_")), job,
-                 _leg_opts(**(kw if label in across[name]
+                 _leg_opts(**(dict(kw, prewarm=True) if label in across[name]
                               else dict(ONE, **kw))))
                 for label, kw in labels]
         jobs += [(os.path.join(tmp, f"ref_{name}_{device}"), SMALL[name],
@@ -1274,15 +1473,22 @@ def invariants(tmp: str, runs: dict) -> None:
                        device=device)) for device in ("cuda", "cpu")]
         if name == "pmf":
             jobs.append((os.path.join(tmp, "inv_pmf_adam_n_brokers_2"),
-                         PMF_ADAM, _leg_opts(n_brokers=2)))
+                         PMF_ADAM, _leg_opts(n_brokers=2, prewarm=True)))
         extra = [x for x in ssp_shm if x[0] == name]
         jobs += [(os.path.join(tmp, f"inv_extra_{name}_{i}"), PMF,
                   _leg_opts(**kw)) for i, (_, _, _, kw, _) in enumerate(extra)]
         batches[name] = jobs
-    # one pool for both batches, five jobs at a time: seven at once have
-    # kept a broker of a slow host from listening within its 30 s
-    done = run_trains([j for jobs in batches.values() for j in jobs],
+    # PMF-Nesterov's pre-warmed rerun runs alone first, so that its wall
+    # reads beside pmf_bitmap's (alone too); then one pool for the rest of
+    # both batches, five jobs at a time: they are checked for bits, not
+    # timed (seven at once have kept a broker that imported torch from
+    # listening within its 30 s on a slow host)
+    solo = batches["pmf"][1]  # labels[1], the rerun
+    solo_res, = run_trains([solo])
+    done = run_trains([j for jobs in batches.values() for j in jobs
+                       if j is not solo],
                       timeout_s=800.0, stagger_s=2.0, max_parallel=5)
+    done.insert(1, solo_res)
     for name, (job, leg) in checks.items():
         jobs = batches[name]
         results, done = done[:len(jobs)], done[len(jobs):]
@@ -1317,6 +1523,7 @@ def invariants(tmp: str, runs: dict) -> None:
                 r["wire_bytes"] for r in res0["history"]]
             log("invariant", workload=name, against=f"{leg} n_brokers=1",
                 run=label, inv_steps=kw["inv_steps"],
+                prewarm=kw.get("prewarm", False),
                 digest_equal=dig == dig0,
                 wire_bytes_equal=same_bytes,
                 dup_mismatches=res["dup_mismatches"])
@@ -1325,22 +1532,29 @@ def invariants(tmp: str, runs: dict) -> None:
             require(same_bytes, f"{name}: per-step wire bytes differ: {label}")
             require(res["dup_mismatches"] == 0,
                     f"{name}: dup mismatches: {label}")
+            if kw.get("prewarm"):
+                check_prewarmed(f"{name} {label}", d, res, leg, res0)
         if name == "pmf":
             d_adam, res_adam = runs["pmf_adam_bitmap"]
             i_adam = len(labels) + 2  # after the card/CPU reference pair
+            res_a2 = results[i_adam]
             dig_a, dig_a2 = digest(d_adam, PMF_ADAM), digest(
                 jobs[i_adam][0], PMF_ADAM)
+            same_bytes = [r["wire_bytes"] for r in res_a2["history"]] == [
+                r["wire_bytes"] for r in res_adam["history"]]
             log("invariant", workload="pmf-adam",
                 against="pmf_adam_bitmap n_brokers=1", run="n_brokers=2",
-                inv_steps=5,
-                digest_equal=dig_a == dig_a2,
-                wire_bytes_total_equal=results[i_adam]["wire_bytes_total"]
-                == res_adam["wire_bytes_total"],
-                dup_mismatches=results[i_adam]["dup_mismatches"])
+                inv_steps=5, prewarm=True,
+                digest_equal=dig_a == dig_a2, wire_bytes_equal=same_bytes,
+                dup_mismatches=res_a2["dup_mismatches"])
             require(dig_a == dig_a2, "pmf-adam: final-params digest differs: "
                     "n_brokers=2")
-            require(results[i_adam]["dup_mismatches"] == 0,
+            require(same_bytes,
+                    "pmf-adam: per-step wire bytes differ: n_brokers=2")
+            require(res_a2["dup_mismatches"] == 0,
                     "pmf-adam: dup mismatches: n_brokers=2")
+            check_prewarmed("pmf-adam n_brokers=2", jobs[i_adam][0], res_a2,
+                            "pmf_adam_bitmap", res_adam)
         evals = {"cuda": results[3]["final_eval"],
                  "cpu": results[4]["final_eval"]}
         rel = abs(evals["cuda"] - evals["cpu"]) / abs(evals["cpu"])
@@ -2380,14 +2594,29 @@ def _device_profile(fn, reps: int = 20) -> tuple:
 
 def _device_ms(fn, reps: int = 20) -> float:
     """``_device_profile``'s time. A window in which the tracer recorded no
-    device operation (seen once, for ``scaled_dot_product_attention``) is
-    taken again, at most twice; a third empty one fails."""
+    device operation (seen for ``scaled_dot_product_attention``, and three
+    times running for B6 late in a run on a slow host) is taken again, at
+    most twice; after a third empty one the calls are timed back to back
+    with CUDA events instead (L2 warm, launch gaps included), and a
+    ``[profiler]`` line says so."""
+    import torch
+
     for _ in range(3):
         ms, per_call = _device_profile(fn, reps)
         if per_call > 0:
             return ms
-    raise SmokeFailure("the profiler recorded no device operation in 3 "
-                       "windows")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    log("profiler", empty_windows=3, fallback="cuda_events", ms=ms)
+    return ms
 
 
 def _single_launch(name: str, fn) -> tuple:
@@ -2809,6 +3038,8 @@ def main() -> int:
         done("main paths")
         straggler_duel(tmp)
         done("straggler duel")
+        chaos = chaos_leg(tmp, runs)
+        done("chaos")
         pods = pod_paths(tmp)
         flats = flat_paths(tmp)
         done("in-process legs")
@@ -2829,11 +3060,13 @@ def main() -> int:
     profile_step(dev, steady(runs["pmf_bitmap"][1], 5)["step_s"])
     done("times")
 
-    # launches: every main-path leg and serving run, each counted from 0
-    # in fresh processes, and the simulator's jobs, each from 0
+    # launches: every main-path leg, the chaos leg and every serving run,
+    # each counted from 0 in fresh processes, and the simulator's jobs,
+    # each from 0
     launches = {k: 0 for k in KERNELS}
     counted = [c for _, res in runs.values()
                for c in res["kernel_launches_by_worker"].values()]
+    counted += list(chaos["kernel_launches_by_worker"].values())
     counted += [res["kernel_launches"] for res in served.values()]
     counted += [pods[label]["kernel_launches"] for label, _ in POD_LEGS]
     counted += [res["kernel_launches"] for res in flats.values()]

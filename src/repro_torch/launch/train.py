@@ -40,12 +40,18 @@ Two runtimes, as in the JAX package:
 
   ``--consistency ssp --slack S`` runs bounded staleness in place of the
   per-step ISP barrier, and ``--transport shm`` moves the workers' data
-  path onto shared-memory rings; alone or together.
+  path onto shared-memory rings; alone or together. ``--chaos SEED:auto``
+  or ``--chaos 'SEED:[{"kind": "worker_kill", "step": 4, "worker": 1},
+  ...]'`` runs the job under a seeded fault plan (``runtime/faults.py``;
+  a plan with a ``supervisor_kill`` runs the supervisor out of process
+  through ``faults.run_job_resilient``), ``--prewarm`` spawns each next
+  invocation ahead of its boundary, and ``--hostperf`` launches the
+  workers under ``launch/hostperf.py``'s environment.
 
 Both run on ``--device`` (default ``cuda``; ``cpu`` only when asked for)
 and print their result as JSON. The JAX driver's fleet scheduling
-(``--jobs``), chaos plans, topology tuning and ``--hostperf`` are not yet
-ported and raise.
+(``--jobs``) and topology tuning (``--retune``, ``--topology-tune``) are
+not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -486,12 +492,18 @@ def train(args) -> dict:
 
 def train_faas(args) -> dict:
     """Run the job on the multi-process FaaS runtime."""
+    from repro_torch.runtime.faults import parse_chaos_arg, run_job_resilient
     from repro_torch.runtime.supervisor import FaaSJobConfig, run_job
 
-    for flag in ("jobs", "chaos", "retune", "hostperf", "topology_tune"):
+    for flag in ("jobs", "retune", "topology_tune"):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: not yet ported")
+    chaos = None
+    if args.chaos:
+        chaos = parse_chaos_arg(args.chaos, n_workers=args.workers,
+                                n_shards=args.n_brokers,
+                                total_steps=args.steps)
     device_lib.resolve(args.device)  # no CUDA -> raise before spawning
     run_dir = args.run_dir or args.checkpoint_dir or tempfile.mkdtemp(
         prefix="repro_torch_faas_")
@@ -511,19 +523,28 @@ def train_faas(args) -> dict:
         wire_scheme=args.wire_scheme,
         wire_quant=args.wire_quant,
         wire_impl=args.wire_impl,
+        hostperf=args.hostperf,
         n_brokers=args.n_brokers,
         transport=args.transport,
         consistency=args.consistency,
         slack=args.slack,
         shard_split_bytes=args.shard_split_bytes,
+        prewarm=args.prewarm,
         autotune=args.autotune,
         tuner=AutoTunerConfig(
             sched_interval_s=args.sched_interval,
             delta_s=args.sched_interval / 2,
         ),
         seed=args.seed,
+        chaos=None if chaos is None else chaos.to_spec(),
     )
-    result = run_job(cfg)
+    if chaos is not None and any(e.kind == "supervisor_kill"
+                                 for e in chaos.events):
+        # the supervisor kills itself mid-job: drive it from outside, so
+        # it can be executed again against its journal
+        result = run_job_resilient(cfg)
+    else:
+        result = run_job(cfg)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -597,10 +618,20 @@ def main() -> None:
                     help="faas: SSP staleness bound (ignored under isp)")
     ap.add_argument("--shard-split-bytes", type=int, default=0)
     ap.add_argument("--run-dir", default=None)
+    ap.add_argument("--chaos", default=None, metavar="SEED:SPEC",
+                    help="faas: seeded fault-injection plan "
+                    "(runtime/faults.py): SEED:auto expands the default "
+                    "randomized multi-fault schedule, "
+                    "SEED:[{\"kind\":...,\"step\":...}] is explicit")
+    ap.add_argument("--prewarm", action="store_true",
+                    help="faas: spawn each next invocation gated ahead of "
+                    "its boundary, so its cold start overlaps the current "
+                    "one")
+    ap.add_argument("--hostperf", action="store_true",
+                    help="faas: spawn workers under the tuned host env "
+                    "(launch/hostperf.py)")
     # JAX-driver options that are not yet ported: accepted, then refused
-    ap.add_argument("--hostperf", action="store_true")
     ap.add_argument("--topology-tune", action="store_true")
-    ap.add_argument("--chaos", default=None)
     ap.add_argument("--retune", action="append")
     ap.add_argument("--jobs", default=None)
     args = ap.parse_args()

@@ -58,6 +58,12 @@ No shard ever decodes tensor payloads (workers own the math); it stores
 raw bytes plus a digest so duplicate publishes from a replayed worker can
 be verified bit-identical (``dup_mismatches`` must stay 0 — the
 determinism check, which a broker-shard respawn is also held to).
+
+So the shard imports no tensor library: only the framing
+(``wire.framing``, ``wire.shm``). A shard process starts, and a killed one
+respawns, in the time of a bare interpreter and its WAL replay, not of a
+torch import, which under the load of a job's worker cold starts
+outlasted the workers' RPC retries.
 """
 
 from __future__ import annotations
@@ -73,7 +79,13 @@ import threading
 import zlib
 from typing import Optional
 
-from repro_torch.runtime import protocol
+from repro_torch.wire import framing
+
+
+def _wire_bytes(meta: list[dict]) -> int:
+    """Payload bytes a meta list accounts for, the broker's unit of record
+    (``wire.codec.tree_nbytes``, which imports torch)."""
+    return int(sum(m["nbytes"] for m in meta))
 
 # ops that mutate shard state — exactly what the WAL must persist.
 # publish/flush log from inside their handlers (only non-dup records, with
@@ -255,16 +267,23 @@ class BrokerCore:
         # (step, worker) -> telemetry dict   (coordinator only)
         self.telemetry: dict[tuple[int, int], dict] = {}
         self.evictions: dict[int, int] = {}  # worker -> effective step
-        # per-worker publish clocks: highest step each worker has stored
-        # here.  Publishes from one worker are sequential over its
-        # persistent connection (and WAL replay preserves that order), so
-        # the max is also the contiguous durable frontier — the quantity
-        # the SSP release rule is stated in.
+        # per-worker publish clocks: the contiguous durable frontier, the
+        # highest step s with every step 1..s of that worker stored here —
+        # the quantity the SSP release rule is stated in, and the frontier
+        # the supervisor rolls workers back to after a WAL corruption.
+        # Publishes from one worker arrive in order, so it is the highest
+        # step stored, except after a WAL suffix was quarantined: a worker
+        # past the lost steps may publish a later one before the rollback
+        # reads the clocks, and a highest-step clock would then hide the
+        # hole, and the replay that fills it would never come
         self.clocks: dict[int, int] = {}
         self.statuses: dict[int, str] = {w: "spawned" for w in range(self.P)}
         # kernel launches of work done after a worker's last step (the SSP
         # drain), carried by its final bye
         self.bye_launches: dict[int, dict[str, int]] = {}
+        # each worker's last goodbye, on the worker's wall clock: the
+        # supervisor bills a process that ended while none ran up to it
+        self.bye_wall: dict[int, float] = {}
         self.max_published = 0
         self.dup_mismatches = 0
         self.update_bytes = 0  # codec-accounted published update bytes
@@ -336,6 +355,12 @@ class BrokerCore:
         return all(
             q in fl for q, e in self.evictions.items() if e == step
         )
+
+    def _advance_clock(self, worker: int) -> None:
+        c = self.clocks.get(worker, 0)
+        while worker in self.updates.get(c + 1, ()):
+            c += 1
+        self.clocks[worker] = c
 
     def _ssp_ready(self, d: int) -> bool:
         """Staleness-bounded release: every update from steps <= d is
@@ -457,8 +482,8 @@ class BrokerCore:
                 self._log(h, payload)
                 slot[worker] = (meta, payload, digest)
                 self.max_published = max(self.max_published, step)
-                self.clocks[worker] = max(self.clocks.get(worker, 0), step)
-                self.update_bytes += protocol.wire_bytes(meta)
+                self._advance_clock(worker)
+                self.update_bytes += _wire_bytes(meta)
             if self.is_coordinator:
                 # telemetry is a coordinator concern; the worker reports
                 # its cross-shard wire_bytes total on this one publish
@@ -469,7 +494,7 @@ class BrokerCore:
                         "inv_err": h.get("inv_err"),
                         "wire_bytes": (
                             h["wire_bytes"] if "wire_bytes" in h
-                            else protocol.wire_bytes(meta)
+                            else _wire_bytes(meta)
                         ),
                     }
                 )
@@ -511,7 +536,7 @@ class BrokerCore:
                 return {"ok": False, "abort": True}, b""
             if not ready or not self._barrier_ready(step):
                 return {"ok": True, "ready": False, **self._membership()}, b""
-            descs, payload = protocol.pack_parts(
+            descs, payload = framing.pack_parts(
                 self._parts_at(step, worker)
             )
             resp = {
@@ -546,7 +571,7 @@ class BrokerCore:
             if not ready or not self._ssp_ready(d):
                 return {"ok": True, "ready": False, **self._membership()}, b""
             parts = self._parts_at(d, worker) if d >= 1 else []
-            descs, payload = protocol.pack_parts(parts)
+            descs, payload = framing.pack_parts(parts)
             resp = {
                 "ok": True,
                 "ready": True,
@@ -571,11 +596,15 @@ class BrokerCore:
                 cell["launches"] = {
                     k: int(v) for k, v in h["launches"].items()
                 }
+            if "faults" in h:  # worker-side chaos events fired (faults.py)
+                cell["faults"] = list(h["faults"])
         return {"ok": True}, b""
 
     def _op_bye(self, h: dict, _p: bytes) -> tuple[dict, bytes]:
         with self._lock:
             self.statuses[int(h["worker"])] = f"bye:{h.get('reason', '?')}"
+            if "wall" in h:
+                self.bye_wall[int(h["worker"])] = float(h["wall"])
             if "launches" in h:
                 self.bye_launches[int(h["worker"])] = {
                     k: int(v) for k, v in h["launches"].items()
@@ -726,7 +755,7 @@ class BrokerCore:
                                  "meta": sel},
                                 b"".join(segs),
                             ))
-            descs, payload = protocol.pack_parts(parts)
+            descs, payload = framing.pack_parts(parts)
             resp = {
                 "ok": True,
                 "parts": descs,
@@ -744,13 +773,11 @@ class BrokerCore:
         from anything this shard already stored, and post-fence pulls
         never read pre-fence steps (only dump reassembly does, and it is
         order-insensitive per (worker, step))."""
-        from repro_torch.wire.framing import unpack_parts
-
         key = (int(h["gen"]), int(h["src"]))
         with self._cond:
             if key in self.migrations_applied:
                 return {"ok": True, "already": True}, b""
-            for desc, part in unpack_parts(h["parts"], payload):
+            for desc, part in framing.unpack_parts(h["parts"], payload):
                 kind = desc["kind"]
                 store = self.updates if kind == "update" else self.flushes
                 step, w = int(desc["step"]), int(desc["worker"])
@@ -770,8 +797,8 @@ class BrokerCore:
                 slot[w] = (metas, blob, digest)
                 if kind == "update":
                     self.max_published = max(self.max_published, step)
-                    self.clocks[w] = max(self.clocks.get(w, 0), step)
-                    self.update_bytes += protocol.wire_bytes(desc["meta"])
+                    self._advance_clock(w)
+                    self.update_bytes += _wire_bytes(desc["meta"])
             self.migrations_applied.add(key)
             self._cond.notify_all()
         return {"ok": True, "already": False}, b""
@@ -797,7 +824,7 @@ class BrokerCore:
                         if not dropped:
                             continue
                         if kind == "update":
-                            self.update_bytes -= protocol.wire_bytes(dropped)
+                            self.update_bytes -= _wire_bytes(dropped)
                         if keep:
                             kept_blob = b"".join(segs)
                             digest = hashlib.sha1(
@@ -851,6 +878,12 @@ class BrokerCore:
                         str(w): self.telemetry[(step, w)].get("launches", {})
                         for w in active
                     }
+                if any("faults" in c for c in cells):
+                    row["faults_by_worker"] = {
+                        str(w): self.telemetry[(step, w)]["faults"]
+                        for w in active
+                        if "faults" in self.telemetry[(step, w)]
+                    }
                 phases = [c["phase"] for c in cells if "phase" in c]
                 if phases:
                     row["phase"] = {
@@ -870,6 +903,10 @@ class BrokerCore:
                 "dup_mismatches": self.dup_mismatches,
                 **self._membership(),
             }
+            if self.bye_wall:
+                resp["bye_wall"] = {
+                    str(w): t for w, t in self.bye_wall.items()
+                }
             if self.bye_launches:  # absent unless a drain reported
                 resp["bye_launches"] = {
                     str(w): dict(c) for w, c in self.bye_launches.items()
@@ -891,7 +928,7 @@ class BrokerCore:
                     parts.append(
                         ({"worker": w, "step": step, "meta": meta}, blob)
                     )
-            descs, payload = protocol.pack_parts(parts)
+            descs, payload = framing.pack_parts(parts)
         return {"ok": True, "parts": descs}, payload
 
     def _op_stats(self, h: dict, _p: bytes) -> tuple[dict, bytes]:
@@ -959,16 +996,16 @@ class _Handler(socketserver.BaseRequestHandler):
         try:
             self.request.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             while True:
-                header, payload = protocol.recv_msg(self.request)
+                header, payload = framing.recv_msg(self.request)
                 if header.get("t") == "shm_serve":
                     # transport control plane, not shard state: the shell
                     # attaches a shared-memory segment and serves it from
                     # a dedicated thread (idempotent per segment)
                     resp = broker.shm_serve(header)
-                    protocol.send_msg(self.request, resp)
+                    framing.send_msg(self.request, resp)
                     continue
                 core, resp, blob = broker.dispatch(header, payload)
-                out = protocol.send_msg(self.request, resp, blob)
+                out = framing.send_msg(self.request, resp, blob)
                 _account_request(core, header, payload, out)
                 if core.shutting_down and broker.all_shutting_down():
                     # signal process exit only AFTER the last job's

@@ -43,6 +43,8 @@ from __future__ import annotations
 import json
 import os
 import random
+import subprocess
+import sys
 import time
 from dataclasses import dataclass, field, replace
 from typing import Iterator, Optional
@@ -335,6 +337,24 @@ class WorkerFaults:
         self._fired: set = set()
         self._step = -1
         self._installed = False
+        # each event's index in the plan, and the firings not yet reported
+        # as (index, kind, local step, monotonic time)
+        self._index = {id(e): i for i, e in enumerate(plan.events)}
+        self._unreported: list = []
+
+    def _record(self, e: FaultEvent) -> None:
+        self._unreported.append(
+            (self._index[id(e)], e.kind, self._step, time.monotonic()))
+
+    def drain(self) -> list:
+        """The firings since the last call, as the worker's step report
+        carries them: ``recovery_s`` is the seconds from the firing until
+        now, when the worker has completed a step again."""
+        now = time.monotonic()
+        out = [{"index": i, "kind": k, "step": s, "recovery_s": now - t}
+               for i, k, s, t in self._unreported]
+        self._unreported = []
+        return out
 
     def install(self) -> None:
         if self.events:
@@ -364,12 +384,15 @@ class WorkerFaults:
                 continue
             if e.kind == "transport_delay" and side == "send":
                 self._fired.add(id(e))
+                self._record(e)
                 time.sleep(e.delay_s)
             elif e.kind == "transport_stall" and side == "recv":
                 self._fired.add(id(e))
+                self._record(e)
                 time.sleep(e.delay_s)
             elif e.kind == "transport_reset" and side == "send":
                 self._fired.add(id(e))
+                self._record(e)
                 raise ConnectionError(
                     f"chaos: injected connection reset "
                     f"(worker {self.worker_id}, step {self._step})")
@@ -382,9 +405,11 @@ class WorkerFaults:
                 continue
             if e.every > 0:
                 if (t - e.step) % e.every == 0:
+                    self._record(e)
                     total += e.delay_s
             elif id(e) not in self._fired:
                 self._fired.add(id(e))
+                self._record(e)
                 total += e.delay_s
         return total
 
@@ -394,5 +419,56 @@ class WorkerFaults:
             if e.kind == "ckpt_enospc" and id(e) not in self._fired \
                     and step >= e.step:
                 self._fired.add(id(e))
+                self._record(e)
                 return True
         return False
+
+
+# -- resilient out-of-process job runner --------------------------------------
+
+
+def run_job_resilient(cfg, max_restarts: int = 3) -> dict:
+    """Run a job under a supervisor that may be killed by its own plan.
+
+    The supervisor runs as a subprocess (``python -m
+    repro_torch.runtime.supervisor --config ... --allow-self-kill
+    --resume``); when a ``supervisor_kill`` event takes it down mid-job,
+    it is executed again and re-adopts the live pool from its journal.
+    Returns the job result dict with ``supervisor_restarts`` added. Each
+    supervisor's output goes to ``logs/supervisor.runNN.log`` under the
+    run directory.
+    """
+    import repro_torch
+
+    logdir = os.path.join(cfg.run_dir, "logs")
+    os.makedirs(logdir, exist_ok=True)
+    cfg_path = os.path.join(cfg.run_dir, "job_config.json")
+    out_path = os.path.join(cfg.run_dir, "job_result.json")
+    if os.path.exists(out_path):
+        os.unlink(out_path)
+    with open(cfg_path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    env = dict(os.environ)
+    src = os.path.dirname(os.path.dirname(os.path.abspath(
+        repro_torch.__file__)))
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "repro_torch.runtime.supervisor",
+           "--config", cfg_path, "--out", out_path, "--allow-self-kill",
+           "--resume"]
+    restarts = 0
+    for run in range(max_restarts + 1):
+        with open(os.path.join(logdir, f"supervisor.run{run:02d}.log"),
+                  "wb") as log:
+            proc = subprocess.run(cmd, env=env, stdout=log,
+                                  stderr=subprocess.STDOUT)
+        if os.path.exists(out_path):
+            with open(out_path) as f:
+                result = json.load(f)
+            result["supervisor_restarts"] = restarts
+            return result
+        if proc.returncode == 0:
+            raise RuntimeError(
+                "supervisor exited 0 without writing a result")
+        restarts += 1
+    raise RuntimeError(
+        f"supervisor did not complete within {max_restarts} restarts")

@@ -38,10 +38,22 @@ Per step t, on the job's device (``cuda`` unless the job says ``cpu``):
 
 Each step reports its phase times (fetch / compute / encode / wire /
 decode) and the kernel launches it made; the SSP drain's launches ride
-the final ``bye``. A straggler sleep from the job's fault plan
-(``FaaSJobConfig.straggler``) falls inside the compute phase. On CUDA the
-worker runs PyTorch's deterministic algorithms, so the scatter-adds of the
-PMF gradient sum in a fixed order and replays stay bit-identical.
+the final ``bye``. The job's fault plan (``runtime/faults.py``) reaches
+the worker in the hello: a ``compute_delay`` (the straggler) sleeps inside
+the compute phase, the transport faults act on its RPCs, and a
+``ckpt_enospc`` fails one checkpoint write, after which the worker warns
+and trains on from the previous generation. On CUDA the worker runs
+PyTorch's deterministic algorithms, so the scatter-adds of the PMF
+gradient sum in a fixed order and replays stay bit-identical.
+
+With ``--prewarm-gate GATE`` the worker is a pre-warmed successor: after
+a warm hello (which leaves the slot's status to the running invocation)
+it pays its cold start on a throwaway copy of the initial state (on the
+card: the CUDA context, the kernel libraries, and one compute step,
+encode, decode and apply, which launch the job's kernels once), resets
+the launch counters, writes ``GATE.ready`` and holds until the
+supervisor creates ``GATE``. Only then does it say hello for real,
+restore the newest checkpoint and train.
 
 Exit codes: 0 clean (done / evicted / invocation boundary), 3 broker
 abort, 4 broker unreachable, 5 barrier deadline exceeded.
@@ -50,6 +62,8 @@ abort, 4 broker unreachable, 5 barrier deadline exceeded.
 from __future__ import annotations
 
 import argparse
+import errno
+import json
 import os
 import time
 from typing import Any, Optional
@@ -97,10 +111,51 @@ class _Membership:
         return self.evictions.get(worker)
 
 
+def save_checkpoint(ckpt_dir: str, step: int, state: dict, worker_id: int,
+                    wfaults: Optional[WorkerFaults] = None) -> bool:
+    """Save one checkpoint generation; False when the write failed. A
+    ``ckpt_enospc`` event due at ``step`` fails it after the staged files
+    are written and before the atomic install, so the partial snapshot
+    stays invisible. A failed save is survivable: the previous generation
+    stays restorable and replay covers the gap, so the worker warns and
+    trains on."""
+    from repro_torch.checkpoint import store as ckpt
+
+    if wfaults is not None and wfaults.ckpt_should_fail(step):
+        def _enospc(tmp: str) -> None:
+            raise OSError(errno.ENOSPC, "chaos: injected ENOSPC", tmp)
+
+        ckpt.install_write_fault_hook(_enospc)
+    try:
+        ckpt.save(ckpt_dir, step, state,
+                  extra={"worker": worker_id, "next_step": step + 1})
+    except OSError as e:
+        print(f"worker {worker_id}: checkpoint save at step {step} failed "
+              f"({e}); continuing on the previous generation", flush=True)
+        return False
+    finally:
+        ckpt.clear_write_fault_hook()
+    return True
+
+
 def run_worker(addrs: list[tuple[str, int]], worker_id: int,
-               transport: str = "tcp", shm_seg: Optional[str] = None) -> int:
+               transport: str = "tcp", shm_seg: Optional[str] = None,
+               prewarm_gate: Optional[str] = None) -> int:
     """One worker's life for one job (solo path). ``shm_seg`` is the base
-    name of the supervisor's segments under ``transport='shm'``."""
+    name of the supervisor's segments under ``transport='shm'``;
+    ``prewarm_gate`` makes it a pre-warmed successor (module docstring)."""
+    # the cold start's parts (seconds), printed to the log once the worker
+    # is ready to train: the import, the hello, the workload (the CUDA
+    # context with it), a successor's warm-up and gate, the restore
+    startup: dict = {}
+    t_mark = time.monotonic()
+
+    def mark(part: str) -> None:
+        nonlocal t_mark
+        now = time.monotonic()
+        startup[part] = now - t_mark
+        t_mark = now
+
     # torch is imported here so ``--help`` stays instant: the import is
     # part of the measured cold start of each invocation
     import torch
@@ -115,6 +170,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
     from repro_torch.runtime import protocol, sharding
     from repro_torch.runtime import workload as workload_lib
 
+    mark("import")
     rpc_policy = RetryPolicy().reseed(worker_id)
 
     def _policy() -> RetryPolicy:
@@ -149,14 +205,19 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
                 last = e
         raise SystemExit(4) from last
 
-    hello, _ = rpc0({"t": "hello", "worker": worker_id})
+    # a warm hello fetches the job without touching the slot's status: the
+    # previous invocation still owns it until its bye
+    hello, _ = rpc0({"t": "hello", "worker": worker_id,
+                     **({"warm": True} if prewarm_gate is not None else {})})
     job = hello["job"]
+    mark("hello")
     members = _Membership(int(job["n_workers"]))
     members.update(hello)
     if job.get("rpc"):
         rpc_policy = RetryPolicy.from_dict(job["rpc"]).reseed(worker_id)
-    # this worker's slice of the job's fault plan (the straggler's
-    # compute delay); with no plan every hook stays dormant
+    # this worker's slice of the job's fault plan (wire delays, stalls and
+    # resets, checkpoint write failures, the straggler's compute delay);
+    # with no plan every hook stays dormant
     _plan = FaultPlan.from_spec(job.get("chaos"))
     wfaults = WorkerFaults(_plan, worker_id) if _plan is not None else None
     if wfaults is not None:
@@ -167,10 +228,14 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
     dev = wl.device
     if dev.type == "cuda":
         # sorted (not atomic) scatter-adds in the PMF backward: bit-identical
-        # gradients run to run
-        torch.use_deterministic_algorithms(True)
+        # gradients run to run. The flag is set where
+        # torch.use_deterministic_algorithms sets it: that wrapper also
+        # imports torch._inductor's config (for a flag no worker reads),
+        # seconds of every worker's cold start on the card's host
+        torch._C._set_deterministic_algorithms(True)
     else:
         torch.set_num_threads(1)  # one vCPU per function, like the reference
+    mark("workload")
     optimizer = optim.make(job["optimizer"], job["lr"])
     fused_adam = optimizer.name == "adam"
     isp = isp_lib.ISPConfig(
@@ -204,18 +269,6 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         for k, leaf in zip(leaf_keys, tree_lib.leaves(params))
     }
 
-    start_step = 1
-    last_saved = 0
-    latest, restored = ckpt.restore_latest_valid(
-        ckpt_dir, {"params": params, "opt": opt_state, "residual": residual},
-        device=dev,
-    )
-    if latest is not None:
-        params, opt_state, residual = (
-            restored["params"], restored["opt"], restored["residual"])
-        start_step = latest + 1
-        last_saved = latest
-
     def compute(params, opt_state, residual, batch, inv_p, t):
         loss, grads = wl.grad_fn(params, batch)
         if fused_adam:
@@ -242,25 +295,17 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         nonlocal last_saved
         if step_done <= 0 or step_done == last_saved:
             return
-        try:
-            ckpt.save(
+        if save_checkpoint(
                 ckpt_dir, step_done,
                 {"params": params, "opt": opt_state, "residual": residual},
-                extra={"worker": worker_id, "next_step": step_done + 1},
-            )
-        except OSError as e:
-            # the previous generation stays restorable and replay covers
-            # the gap: warn and train on
-            print(f"worker {worker_id}: checkpoint save at step "
-                  f"{step_done} failed ({e}); continuing on the previous "
-                  f"generation", flush=True)
-            return
-        last_saved = step_done
+                worker_id, wfaults):
+            last_saved = step_done
 
     def bye(reason: str, launches: Optional[dict] = None) -> None:
         if wfaults is not None:
             wfaults.uninstall()  # the farewell RPCs run fault-free
-        hdr = {"t": "bye", "worker": worker_id, "reason": reason}
+        hdr = {"t": "bye", "worker": worker_id, "reason": reason,
+               "wall": time.time()}
         if launches:
             hdr["launches"] = launches
         rpc0(hdr)
@@ -352,6 +397,52 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
     def launched_since(before: dict) -> dict:
         return {k: v - before.get(k, 0) for k, v in kbuild.LAUNCHES.items()
                 if v != before.get(k, 0)}
+
+    if prewarm_gate is not None:
+        # pre-warmed respawn: pay the cold start now, under the previous
+        # invocation's tail, on a throwaway copy of the initial state (the
+        # job's own state is not touched before the gate opens)
+        if dev.type == "cuda":
+            for name in ("significance", "wire_pack", "fused_adam"):
+                kbuild.load(name)
+        w_params = tree_lib.tree_map(torch.clone, params)
+        w_opt = optimizer.init(w_params)
+        w_res = tree_lib.tree_map(torch.zeros_like, w_params)
+        w_u, w_sig = compute(w_params, w_opt, w_res, wl.batch(0), 1.0, 1)[:2]
+        w_enc, _ = sharding.encode_tree_sharded(
+            w_sig, assignment, n_shards, scheme=wire_scheme,
+            quant=wire_quant, split_bytes=split_bytes, impl=wire_impl)
+        w_peers, _ = decode_parts([
+            protocol.pack_parts([({"worker": worker_id, "step": 0,
+                                   "meta": meta}, parts)])
+            for meta, parts in w_enc])
+        tree_lib.tree_map(lambda a, b, c: a + b + c.to(a.dtype),
+                          w_params, w_u, w_peers)
+        sync()
+        kbuild.reset_launches()  # a warm leg reports a cold one's launches
+        mark("warm")
+        with open(prewarm_gate + ".ready", "w"):
+            pass
+        while not os.path.exists(prewarm_gate):
+            time.sleep(0.02)
+        # now this invocation owns the worker's slot: announce for real
+        hello2, _ = rpc0({"t": "hello", "worker": worker_id})
+        members.update(hello2)
+        mark("gate")
+
+    start_step = 1
+    last_saved = 0
+    latest, restored = ckpt.restore_latest_valid(
+        ckpt_dir, {"params": params, "opt": opt_state, "residual": residual},
+        device=dev,
+    )
+    if latest is not None:
+        params, opt_state, residual = (
+            restored["params"], restored["opt"], restored["residual"])
+        start_step = latest + 1
+        last_saved = latest
+    mark("restore")
+    print("startup " + json.dumps(startup), flush=True)
 
     t = start_step
     steps_this_invocation = 0
@@ -470,7 +561,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         residual = res
         t_apply = tp()
         launched = launched_since(launches0)
-        rpc0({
+        report = {
             "t": "report", "worker": worker_id, "step": t,
             "dur_s": float(t_apply - t0),
             "phase": {
@@ -481,7 +572,11 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
                 "decode": t_decode - t_wire,
             },
             "launches": launched,
-        })
+        }
+        faults = wfaults.drain() if wfaults is not None else []
+        if faults:  # the worker-side faults fired since the last report
+            report["faults"] = faults
+        rpc0(report)
         steps_this_invocation += 1
         if t % checkpoint_every == 0:
             save_ckpt(t)
@@ -508,12 +603,17 @@ def main() -> None:
     ap.add_argument("--shm-seg", default=None,
                     help="shared-memory segment base name (supervisor-"
                     "allocated); shard s attaches '<base>s<s>'")
+    ap.add_argument("--prewarm-gate", default=None,
+                    help="pre-warmed respawn: warm up, touch "
+                    "'<gate>.ready', then hold until the gate file "
+                    "appears before restoring state and training")
     args = ap.parse_args()
     if args.transport == "shm" and not args.shm_seg:
         ap.error("--transport shm requires --shm-seg")
     raise SystemExit(run_worker(_parse_addrs(args.brokers), args.worker_id,
                                 transport=args.transport,
-                                shm_seg=args.shm_seg))
+                                shm_seg=args.shm_seg,
+                                prewarm_gate=args.prewarm_gate))
 
 
 if __name__ == "__main__":

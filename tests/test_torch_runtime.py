@@ -197,24 +197,15 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
 
 
 @pytest.mark.parametrize("kw", (
-    {"chaos": {"seed": 0, "events": [
-        {"kind": "worker_kill", "step": 2, "worker": 0}]}},
     {"argv": ["--jobs", "a,b"]},
-    {"argv": ["--chaos", "0:auto"]},
     {"argv": ["--retune", "4:n_brokers=2"]},
-    {"argv": ["--hostperf"]},
     {"argv": ["--topology-tune"]},
 ))
 def test_unported_options_raise(tmp_path, monkeypatch, kw):
-    """What the port still refuses: an explicit chaos spec on the job, and
-    the fleet, chaos, retune, hostperf and topology-tune flags of the CLI
-    (SSP and shm are ported: tests/test_torch_ssp.py, test_torch_shm.py)."""
-    if "argv" not in kw:
-        with pytest.raises(NotImplementedError):
-            supervisor.Supervisor(FaaSJobConfig(
-                run_dir=str(tmp_path), device="cpu",
-                workload_cfg=dict(WCFG), **kw))
-        return
+    """What the port still refuses: the fleet, retune and topology-tune
+    flags of the CLI (SSP and shm are ported: tests/test_torch_ssp.py,
+    test_torch_shm.py; chaos, prewarm and hostperf: test_torch_chaos.py,
+    test_torch_prewarm.py)."""
     from repro_torch.launch import train as train_cli
 
     monkeypatch.setattr(sys, "argv", [
