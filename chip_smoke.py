@@ -56,9 +56,9 @@ Phases (any failure exits non-zero; nothing is caught):
    for bit;
 4. main paths — ``python -m repro_torch.launch.train --runtime faas``,
    4 workers, 10 steps, 5 steps per invocation for the PMF-Nesterov
-   bitmap legs under ISP and SSP; the other legs take their steps in one
-   invocation (each invocation costs 4 cold starts); the B2 ones cross
-   the boundary in the invariant runs instead. Each job once with
+   bitmap leg; the other legs take their steps in one invocation (each
+   invocation costs 4 cold starts); the B2 ones and SSP cross the
+   boundary in the invariant runs instead. Each job once with
    ``--wire-scheme bitmap`` and once with ``auto``: the PMF job at ML-10M
    width (U 10681 x 20, M 20 x 71567) with Nesterov (B1, B4, B5), and the
    LR job on dense Criteo (13 features, 200,000 samples, batch 256) with
@@ -96,6 +96,19 @@ Phases (any failure exits non-zero; nothing is caught):
    must be pmf_bitmap's, and no process of the job may be left; each
    recovery, the quarantined WAL bytes and the rollback are logged; its
    workers run under ``--hostperf`` (``launch/hostperf.py``'s env);
+4c. topology tune — after the chaos leg, alone, the online co-tuner
+   (``--topology-tune``, DESIGN.md §16): PMF-Nesterov bitmap at ML-10M
+   width, 4 workers, one tcp shard at the start, 48 steps in one
+   invocation, unpaced; the CLI chunks the leaves at 64 KiB over the
+   consistent-hash ring, so each worker launches B4 once a chunk a step
+   and B5 once a chunk a peer a step (102 chunks: the counts are derived
+   from ``sharding.tree_subleaves`` and required exactly, with B1 96). It
+   must explore its three cells (the start, 2 shards, shm) for at least
+   ``topo_explore_steps`` steady steps each, commit with nothing
+   abandoned and end on the chosen cell, refuse no retune, keep no dup
+   mismatch and leave nothing in /dev/shm; each cell's p50, p95, phase
+   p50s and first steps, and each handover's fence, moved subkeys and
+   seconds are logged (``[topology]`` lines);
 5. invariants — for PMF-Nesterov and for LR, the bitmap run's final-params
    digest must be identical with 2 broker shards, on a rerun, and with
    ``--wire-impl numpy`` (which must also give identical wire bytes); the
@@ -115,7 +128,19 @@ Phases (any failure exits non-zero; nothing is caught):
    eval RMSE or BCE within 1e-3 relative: the two devices sum in different
    orders). PMF-Nesterov's pre-warmed rerun runs alone, so that its wall
    reads beside pmf_bitmap's; the other runs go side by side, five at a
-   time: they are checked for bits, not timed. Then the LM serving paths,
+   time: they are checked for bits, not timed. First in that pool the
+   retune leg, ``pmf_retune``: PMF-Nesterov bitmap, 4 workers, 10 steps in
+   one invocation, one tcp shard re-sharded live to 2 shm shards at step
+   3 and back to one tcp shard at 7 (``--retune``), worker 0 sleeping
+   0.25 s a step so the supervisor mints each fence with steps left. Both
+   handovers must commit with exactly their changes, the job end on one
+   tcp shard at generation 2, billed at 2 shards, with no crash respawn,
+   3 invocations a worker, no dup mismatch (the retired shard's counted),
+   nothing left in /dev/shm, exactly B1 20 and the chunked B4 and B5
+   counts on every worker, and the digest of ``pmf_bitmap``; beside it the
+   tuning leg's job at a fixed topology (48 steps, one tcp shard, whole
+   leaves), whose digest and per-step wire bytes the tuning leg's must
+   equal. Then the LM serving paths,
    ``python -m repro_torch.launch.serve --no-smoke`` at full width for
    phi4-mini-3.8b
    (B7 in its 32 attention layers) and xlstm-1.3b (B8 in its 6 sLSTM
@@ -168,7 +193,8 @@ Phases (any failure exits non-zero; nothing is caught):
    again at lm-100m's FF leaf with every operand bfloat16 (B3's row),
    B3 beside ``torch._fused_adamw_`` on the same bfloat16 tensors. B4 and
    B5 (and B5's decode-only form) must issue exactly one device operation
-   a call (profiler counts: no memset, no second kernel). B7 at
+   a call (profiler counts: no memset, no second kernel; counted in the
+   bit-exactness phase, at 4% density, while the tracer is fresh). B7 at
    phi4-mini's prefill and at the lm-100m bsp, lm-100m isp-pod and lm-8m
    bsp attention shapes, each beside one ``scaled_dot_product_attention``
    call, and B8 at xlstm-1.3b's prefill (its plan, the clusters the card
@@ -480,7 +506,7 @@ def check_wire_stress(dev) -> dict:
     pairs = ((f32, f32), (f32, f16), (f32, bf16), (f16, f16), (f16, bf16),
              (bf16, f16), (bf16, bf16), (i32, i32))
     sizes = SIZES + (wire_pack.TILE - 1, wire_pack.TILE, wire_pack.TILE + 1,
-                     WIRE_LONG)
+                     WIRE_LONG) + topology_chunk_sizes()
     calls = {"wire_pack": 0, "wire_unpack_add": 0, "wire_unpack": 0}
     for n in sizes:
         for density in WIRE_DENSITIES:
@@ -970,7 +996,8 @@ def _train_cmd(run_dir: str, job: dict, *, workers: int, steps: int,
                transport: str = "tcp", consistency: str = "isp",
                slack: int = 3, checkpoint_every: int = 100,
                chaos: str = None, prewarm: bool = False,
-               hostperf: bool = False) -> list:
+               hostperf: bool = False, retunes: tuple = (),
+               topology_tune: bool = False) -> list:
     """The CLI a user runs."""
     out = os.path.join(run_dir, "result.json")
     return [sys.executable, "-m", "repro_torch.launch.train",
@@ -987,7 +1014,9 @@ def _train_cmd(run_dir: str, job: dict, *, workers: int, steps: int,
             "--run-dir", run_dir, "--out", out,
             *(["--chaos", chaos] if chaos else []),
             *(["--prewarm"] if prewarm else []),
-            *(["--hostperf"] if hostperf else [])]
+            *(["--hostperf"] if hostperf else []),
+            *[a for r in retunes for a in ("--retune", r)],
+            *(["--topology-tune"] if topology_tune else [])]
 
 
 def run_trains(jobs: list, timeout_s: float = 300.0,
@@ -1090,7 +1119,7 @@ LEGS = (
     ("lr_auto", LR, "auto", ("adam_sig_update", "wire_pack"), ONE),
     ("pmf_adam_bitmap", PMF_ADAM, "bitmap",
      ("adam_sig_update", "wire_pack", "wire_unpack_add"), ONE),
-    ("pmf_ssp_bitmap", PMF, "bitmap", tuple(PMF_LAUNCHES), SSP),
+    ("pmf_ssp_bitmap", PMF, "bitmap", tuple(PMF_LAUNCHES), dict(SSP, **ONE)),
     ("pmf_bitmap_shm", PMF, "bitmap", tuple(PMF_LAUNCHES), dict(SHM, **ONE)),
 )
 # the legs whose launch counts are exact, worker by worker
@@ -1382,6 +1411,188 @@ def chaos_leg(tmp: str, runs: dict) -> dict:
     return res
 
 
+# live topology (DESIGN.md §16), PMF-Nesterov bitmap at ML-10M width, 4
+# workers, one tcp shard at the start, one invocation. The retune leg
+# re-shards to 2 shm shards at step 3 and back to one tcp shard at 7;
+# worker 0 sleeps 0.25 s a step (timing only; the barrier paces the pool)
+# so the supervisor mints each fence with steps left: at 0.03 s a step the
+# job would end before the first. The tuning leg runs the online co-tuner
+# over its three cells, unpaced, over enough steps for three handovers
+RETUNES = ('3:{"n_brokers": 2, "transport": "shm"}',
+           '7:{"n_brokers": 1, "transport": "tcp"}')
+RETUNE_PACE = ('0:[{"kind": "compute_delay", "step": 0, "worker": 0, '
+               '"delay_s": 0.25, "every": 1}]')
+TUNE_STEPS = 48
+
+
+def topology_chunks() -> list:
+    """The chunks ``sharding.tree_subleaves`` cuts a PMF job's leaves into
+    at ML-10M width when the CLI chunks them for retunes and tuning (at
+    the size ``launch.train._topology_args`` picks): one
+    ``(leaf, subkey, offset, n)`` each."""
+    import types
+
+    import torch
+
+    from repro_torch.launch.train import _topology_args
+    from repro_torch.runtime import sharding
+
+    split = _topology_args(types.SimpleNamespace(
+        retune=[RETUNES[0]], topology_tune=False,
+        shard_split_bytes=0))["shard_split_bytes"]
+    template = {"U": torch.empty((10681, 20), device="meta"),
+                "M": torch.empty((20, 71567), device="meta")}
+    return sharding.tree_subleaves(template, split)
+
+
+def topology_chunk_sizes() -> tuple:
+    """The distinct chunk lengths of ``topology_chunks``, the shapes B4 and
+    B5 see on the topology legs (a full chunk and each leaf's tail)."""
+    return tuple(sorted({n for _, _, _, n in topology_chunks()}))
+
+
+def topology_launches(steps: int, workers: int = 4) -> tuple:
+    """The launches each worker of a PMF-Nesterov bitmap job at ML-10M
+    width makes on ``topology_chunks``, derived from the code: one B4 a
+    chunk a step, one B5 a chunk a peer a step and one B1 a leaf a step.
+    Returns (counts, chunks)."""
+    chunks = topology_chunks()
+    n, leaves = len(chunks), len({leaf for leaf, _, _, _ in chunks})
+    return {"significance_filter": leaves * steps, "wire_pack": n * steps,
+            "wire_unpack_add": (workers - 1) * n * steps}, n
+
+
+def check_topology_run(label: str, d: str, res: dict, steps: int) -> None:
+    """What both topology legs must show: every step with the full pool
+    and no dup mismatch (the retired shards' counted), no refused retune,
+    every handover completed at frontier fence - 1, no segment left in
+    /dev/shm, and on every worker exactly the launches
+    ``topology_launches`` derives. Logs each handover (its fence, the
+    subkeys it moved, its seconds) and the launches a step."""
+    want, chunks = topology_launches(steps)
+    for e in res["topology_events"]:
+        log("topology", leg=label, gen=e["gen"], fence=e["fence"],
+            changes=json.dumps(e["changes"]), at_frontier=e["at_frontier"],
+            moved_subkeys=e.get("moved_subkeys"),
+            total_subkeys=e.get("total_subkeys"), noop=e.get("noop"),
+            refused=e.get("refused"), handover_s=e.get("handover_s"),
+            migrate_s=e.get("migrate_s"))
+    launches = res["kernel_launches_by_worker"]
+    log("topology", leg=label, steps=res["steps"], chunks=chunks,
+        final_topology=json.dumps(res["topology"]),
+        topology_gen=res["topology_gen"], n_redis=res["bill"]["n_redis"],
+        dup_mismatches=res["dup_mismatches"], wall_s=res["wall_s"],
+        n_invocations=res["n_invocations"],
+        broker_respawns=len(res["broker_respawns"]),
+        respawns=len(res["respawns"]),
+        step_s_mean=res["measured_step_s"],
+        phase_s_mean=json.dumps(res["phase_s_mean"]),
+        launches_per_step=json.dumps({
+            w: {k: v / res["steps"] for k, v in c.items()}
+            for w, c in launches.items()}),
+        startup=json.dumps(startup_split(d)))
+    require(res["steps"] == steps and res["final_pool"] == 4,
+            f"{label}: steps={res['steps']} pool={res['final_pool']}")
+    require(res["dup_mismatches"] == 0, f"{label}: dup mismatches")
+    require(not any("refused" in e for e in res["topology_events"]),
+            f"{label}: a retune was refused: {res['topology_events']}")
+    # every worker parked with step fence-1 done and none past it: no
+    # worker had begun the fence's step when the coordinator minted it
+    require(all(e["at_frontier"] == e["fence"] - 1
+                for e in res["topology_events"] if e["fence"] is not None),
+            f"{label}: a handover's frontier is not its fence - 1: "
+            f"{res['topology_events']}")
+    require(sorted(launches) == ["0", "1", "2", "3"],
+            f"{label}: launch telemetry from workers {sorted(launches)}")
+    for w, counts in launches.items():
+        got = {k: counts.get(k, 0) for k in want}
+        require(got == want, f"{label}: worker {w} launched {got}, not "
+                f"{want} ({chunks} chunks)")
+    require(left_in_dev_shm(res) == [],
+            f"{label}: segments left in /dev/shm")
+
+
+def topology_tune_leg(tmp: str) -> tuple:
+    """The online co-tuner alone (its cells' p50s are what it measures):
+    ``--topology-tune``, 48 steps in one invocation, unpaced. It must
+    explore all three cells (the start, 2 shards, shm), each for at least
+    ``topo_explore_steps`` steady steps, commit with nothing abandoned and
+    end on the chosen cell, besides ``check_topology_run``. Logs each
+    cell's p50, p95, phase p50s and its first steps' seconds (the tuner
+    drops ``warmup_steps`` of them). Its digest is checked against a
+    fixed-topology run in the invariant pool."""
+    from repro_torch.core.autotuner import TopologyTunerConfig
+    from repro_torch.runtime.supervisor import FaaSJobConfig
+
+    d = os.path.join(tmp, "topology_tune")
+    res, = run_trains([(d, PMF, _leg_opts(
+        steps=TUNE_STEPS, inv_steps=TUNE_STEPS, topology_tune=True))])
+    check_topology_run("pmf_topology_tune", d, res, TUNE_STEPS)
+    tuner = res["topology_tuner"]
+    explore = FaaSJobConfig.__dataclass_fields__["topo_explore_steps"].default
+    warmup = TopologyTunerConfig().warmup_steps
+    starts = [1] + [e["fence"] for e in res["topology_events"]
+                    if e.get("fence") is not None]
+    for i, c in enumerate(tuner["cells"]):
+        # the cell's first steps (cell i starts at the i-th fence)
+        lo = starts[i] if i < len(starts) else TUNE_STEPS + 1
+        hi = starts[i + 1] if i + 1 < len(starts) else TUNE_STEPS + 1
+        durs = [round(r["dur_s"], 5) for r in res["history"]
+                if lo <= r["step"] < hi]
+        log("topology", leg="pmf_topology_tune", cell=i,
+            n_brokers=c["cell"]["n_brokers"],
+            transport=c["cell"]["transport"], n_steps=c["n_steps"],
+            p50=c["p50"], p95=c["p95"], phase_p50=json.dumps(c["phase_p50"]),
+            explored_steps=f"{lo}-{hi - 1}", explored_step_s=json.dumps(durs),
+            warmup_steps=warmup)
+    if len(starts) > 3:  # the commit moved the job back to an earlier cell
+        log("topology", leg="pmf_topology_tune", after_commit_from=starts[3],
+            step_s=json.dumps([round(r["dur_s"], 5) for r in res["history"]
+                               if r["step"] >= starts[3]]))
+    log("topology", leg="pmf_topology_tune", chosen=tuner["chosen"],
+        chosen_cell=json.dumps(tuner["chosen_cell"]),
+        committed=tuner["committed"], abandoned=tuner["abandoned"])
+    require(len(tuner["cells"]) == 3
+            and all(c["n_steps"] >= explore for c in tuner["cells"]),
+            f"pmf_topology_tune: cells not all explored: {tuner['cells']}")
+    require(tuner["committed"] and not tuner["abandoned"],
+            f"pmf_topology_tune: no commit: {tuner}")
+    require(res["topology"] == tuner["chosen_cell"],
+            f"pmf_topology_tune: ended on {res['topology']}, chose "
+            f"{tuner['chosen_cell']}")
+    return d, res
+
+
+def check_retune(d: str, res: dict, runs: dict) -> None:
+    """The retune leg (run in the invariant pool): the two handovers with
+    exactly their changes, none refused or a no-op; one tcp shard at the
+    end, generation 2, billed at the peak of 2 shards; no crash respawn
+    and 3 invocations a worker (the first and one after each handover);
+    the digest of ``pmf_bitmap``; besides ``check_topology_run``."""
+    check_topology_run("pmf_retune", d, res, 10)
+    events = res["topology_events"]
+    changes = [json.loads(r.split(":", 1)[1]) for r in RETUNES]
+    logs = os.listdir(os.path.join(d, "logs"))
+    per_worker = [sum(1 for n in logs if n.startswith(f"w{w:03d}.inv"))
+                  for w in range(4)]
+    dig, dig0 = digest(d, PMF), digest(runs["pmf_bitmap"][0], PMF)
+    log("topology", leg="pmf_retune", against="pmf_bitmap",
+        digest_equal=dig == dig0, invocations_by_worker=json.dumps(
+            per_worker))
+    require([e["changes"] for e in events] == changes
+            and not any(e.get("noop") for e in events),
+            f"pmf_retune: handovers {events}")
+    require(res["topology"]["n_brokers"] == 1
+            and res["topology"]["transport"] == "tcp"
+            and res["topology_gen"] == 2 and res["bill"]["n_redis"] == 2,
+            f"pmf_retune: topology {res['topology']} gen "
+            f"{res['topology_gen']} n_redis {res['bill']['n_redis']}")
+    require(res["respawns"] == [] and per_worker == [3, 3, 3, 3],
+            f"pmf_retune: respawns {res['respawns']}, invocations "
+            f"{per_worker}")
+    require(dig == dig0, "pmf_retune: digest differs from pmf_bitmap's")
+
+
 def check_prewarmed(label: str, d: str, res: dict, leg: str,
                     cold: dict) -> None:
     """A pre-warmed run (4 workers, 10 steps, 5 an invocation) against its
@@ -1420,7 +1631,43 @@ def check_prewarmed(label: str, d: str, res: dict, leg: str,
                     f"{got}, not {EXACT[leg]}")
 
 
-def invariants(tmp: str, runs: dict) -> None:
+def check_topology_pool(topo: list, results: dict, runs: dict,
+                        tune: tuple) -> dict:
+    """The topology runs of the invariant pool: the retune leg
+    (``check_retune``) and the tuning leg against its job at a fixed
+    topology (digest, per-step wire bytes, no dup mismatch). Logs the
+    fixed run's per-step seconds beside the tuning leg's, so that a drift
+    with the step count in the tuning leg's cells reads against a job
+    with no handover. Returns the retune leg's result."""
+    (retune_d, _, _), (fixed_d, _, _) = topo
+    retune_res, fixed_res = results[retune_d], results[fixed_d]
+    check_retune(retune_d, retune_res, runs)
+    tune_d, tune_res = tune
+    dig, dig_fixed = digest(tune_d, PMF), digest(fixed_d, PMF)
+    same_bytes = [r["wire_bytes"] for r in tune_res["history"]] == [
+        r["wire_bytes"] for r in fixed_res["history"]]
+    log("invariant", workload="pmf", against="pmf at a fixed topology, "
+        f"{TUNE_STEPS} steps", run="pmf_topology_tune",
+        digest_equal=dig == dig_fixed, wire_bytes_equal=same_bytes,
+        dup_mismatches=fixed_res["dup_mismatches"],
+        wall_s=tune_res["wall_s"], wall_s_fixed=fixed_res["wall_s"])
+    for label, res in (("pmf_topology_tune", tune_res),
+                       ("fixed", fixed_res)):
+        log("topology", leg=label, step_s=json.dumps(
+            [round(r["dur_s"], 5) for r in res["history"]]),
+            decode_s=json.dumps([round(r["phase"]["decode"], 5)
+                                 for r in res["history"]]))
+    require(dig == dig_fixed, "pmf_topology_tune: digest differs from the "
+            "fixed-topology run's")
+    require(same_bytes, "pmf_topology_tune: per-step wire bytes differ")
+    require(fixed_res["dup_mismatches"] == 0,
+            "pmf fixed 48: dup mismatches")
+    return retune_res
+
+
+def invariants(tmp: str, runs: dict, tune: tuple) -> dict:
+    """The invariant pool; returns the retune leg's result (its launches
+    join the kernels line)."""
     import torch
 
     checks = {"pmf": (PMF, "pmf_bitmap"), "lr": (LR, "lr_bitmap")}
@@ -1448,18 +1695,21 @@ def invariants(tmp: str, runs: dict) -> None:
               ("wire_impl=numpy", {"impl": "numpy"}))
     across = {"pmf": ("rerun",), "lr": ("n_brokers=2", "rerun")}
     # SSP and shm, checked in the same pool (PMF bitmap, 4 workers, 10
-    # steps): (batch, label, the leg it
-    # must equal, options, the worker and broker respawns it must record)
+    # steps): (batch, label, the leg it must equal, options, the worker and
+    # broker respawns it must record, the exact launches of every worker or
+    # None). The SSP/shm run takes 5 steps an invocation, the one SSP run
+    # that crosses a boundary: its respawned workers must decode on the
+    # card (the drain in the second invocation), so its launches are exact
     ssp_shm = (
         ("pmf", "ssp n_brokers=2 shm", "pmf_ssp_bitmap",
-         dict(SSP, n_brokers=2, **SHM), (0, 0)),
+         dict(SSP, n_brokers=2, **SHM), (0, 0), PMF_LAUNCHES),
         ("lr", "ssp worker 1 SIGKILLed at step 7", "pmf_ssp_bitmap",
          dict(SSP, chaos='0:[{"kind": "worker_kill", "step": 7, "worker": 1}]',
-              **ONE), (1, 0)),
+              **ONE), (1, 0), None),
         ("lr", "n_brokers=2 shm, shard 1 SIGKILLed at step 4", "pmf_bitmap",
          dict(SHM, n_brokers=2,
               chaos='0:[{"kind": "broker_kill", "step": 4, "shard": 1}]',
-              **ONE), (0, 1)),
+              **ONE), (0, 1), None),
     )
     batches = {}
     for name, (job, leg) in checks.items():
@@ -1476,27 +1726,38 @@ def invariants(tmp: str, runs: dict) -> None:
                          PMF_ADAM, _leg_opts(n_brokers=2, prewarm=True)))
         extra = [x for x in ssp_shm if x[0] == name]
         jobs += [(os.path.join(tmp, f"inv_extra_{name}_{i}"), PMF,
-                  _leg_opts(**kw)) for i, (_, _, _, kw, _) in enumerate(extra)]
+                  _leg_opts(**x[3])) for i, x in enumerate(extra)]
         batches[name] = jobs
+    # the topology runs, first in the pool (the retune leg pays three cold
+    # starts in a row): the retune leg (checked for bits) and the tuning
+    # leg's job at a fixed topology (one tcp shard, whole leaves)
+    topo = [(os.path.join(tmp, "pmf_retune"), PMF, _leg_opts(
+                inv_steps=10, retunes=RETUNES, chaos=RETUNE_PACE)),
+            (os.path.join(tmp, "inv_pmf_fixed_48"), PMF, _leg_opts(
+                steps=TUNE_STEPS, inv_steps=TUNE_STEPS))]
     # PMF-Nesterov's pre-warmed rerun runs alone first, so that its wall
-    # reads beside pmf_bitmap's (alone too); then one pool for the rest of
-    # both batches, five jobs at a time: they are checked for bits, not
-    # timed (seven at once have kept a broker that imported torch from
-    # listening within its 30 s on a slow host)
+    # reads beside pmf_bitmap's (alone too); then one pool for the rest,
+    # five jobs at a time: they are checked for bits, not timed (seven at
+    # once have kept a broker that imported torch from listening within
+    # its 30 s on a slow host). The longest start first (the topology
+    # runs, then the pre-warmed ones), so that no long job starts last;
+    # results are keyed by run directory
     solo = batches["pmf"][1]  # labels[1], the rerun
-    solo_res, = run_trains([solo])
-    done = run_trains([j for jobs in batches.values() for j in jobs
-                       if j is not solo],
-                      timeout_s=800.0, stagger_s=2.0, max_parallel=5)
-    done.insert(1, solo_res)
+    rest = [j for jobs in batches.values() for j in jobs if j is not solo]
+    pool = topo + [j for j in rest if j[2].get("prewarm")] + [
+        j for j in rest if not j[2].get("prewarm")]
+    results = dict(zip([solo[0]], run_trains([solo])))
+    results.update(zip([d for d, _, _ in pool], run_trains(
+        pool, timeout_s=800.0, stagger_s=2.0, max_parallel=5)))
+    retune_res = check_topology_pool(topo, results, runs, tune)
     for name, (job, leg) in checks.items():
         jobs = batches[name]
-        results, done = done[:len(jobs)], done[len(jobs):]
+        by_job = [results[d] for d, _, _ in jobs]
         d0, res0 = runs[leg]
         dig0 = digest(d0, job)
         extra = [x for x in ssp_shm if x[0] == name]
-        for (_, label, against, _, respawns), (d, _, _), res in zip(
-                extra, jobs[-len(extra):], results[-len(extra):]):
+        for (_, label, against, _, respawns, exact), (d, _, _), res in zip(
+                extra, jobs[-len(extra):], by_job[-len(extra):]):
             d_ref, res_ref = runs[against]
             dig, dig_ref = digest(d, PMF), digest(d_ref, PMF)
             same_bytes = [r["wire_bytes"] for r in res["history"]] == [
@@ -1506,7 +1767,7 @@ def invariants(tmp: str, runs: dict) -> None:
                 dup_mismatches=res["dup_mismatches"],
                 respawns=len(res["respawns"]),
                 broker_respawns=len(res["broker_respawns"]),
-                shm_left=len(left_in_dev_shm(res)))
+                shm_left=len(left_in_dev_shm(res)), wall_s=res["wall_s"])
             require(dig == dig_ref, f"pmf: digest differs: {label}")
             require(same_bytes, f"pmf: per-step wire bytes differ: {label}")
             require(res["dup_mismatches"] == 0, f"pmf: dup mismatches: "
@@ -1516,8 +1777,14 @@ def invariants(tmp: str, runs: dict) -> None:
                     f"{got}, not {respawns}: {label}")
             require(left_in_dev_shm(res) == [],
                     f"pmf: segments left in /dev/shm: {label}")
+            if exact is not None:
+                got = {w: {k: c.get(k, 0) for k in exact} for w, c in
+                       res["kernel_launches_by_worker"].items()}
+                require(got == {str(w): exact for w in range(4)},
+                        f"pmf: launches {got}, not {exact} on each of 4 "
+                        f"workers: {label}")
 
-        for (label, _), (d, _, kw), res in zip(labels, jobs, results):
+        for (label, _), (d, _, kw), res in zip(labels, jobs, by_job):
             dig = digest(d, job)
             same_bytes = [r["wire_bytes"] for r in res["history"]] == [
                 r["wire_bytes"] for r in res0["history"]]
@@ -1526,7 +1793,7 @@ def invariants(tmp: str, runs: dict) -> None:
                 prewarm=kw.get("prewarm", False),
                 digest_equal=dig == dig0,
                 wire_bytes_equal=same_bytes,
-                dup_mismatches=res["dup_mismatches"])
+                dup_mismatches=res["dup_mismatches"], wall_s=res["wall_s"])
             require(dig == dig0, f"{name}: final-params digest differs: "
                     f"{label}")
             require(same_bytes, f"{name}: per-step wire bytes differ: {label}")
@@ -1537,7 +1804,7 @@ def invariants(tmp: str, runs: dict) -> None:
         if name == "pmf":
             d_adam, res_adam = runs["pmf_adam_bitmap"]
             i_adam = len(labels) + 2  # after the card/CPU reference pair
-            res_a2 = results[i_adam]
+            res_a2 = by_job[i_adam]
             dig_a, dig_a2 = digest(d_adam, PMF_ADAM), digest(
                 jobs[i_adam][0], PMF_ADAM)
             same_bytes = [r["wire_bytes"] for r in res_a2["history"]] == [
@@ -1555,17 +1822,18 @@ def invariants(tmp: str, runs: dict) -> None:
                     "pmf-adam: dup mismatches: n_brokers=2")
             check_prewarmed("pmf-adam n_brokers=2", jobs[i_adam][0], res_a2,
                             "pmf_adam_bitmap", res_adam)
-        evals = {"cuda": results[3]["final_eval"],
-                 "cpu": results[4]["final_eval"]}
+        evals = {"cuda": by_job[3]["final_eval"],
+                 "cpu": by_job[4]["final_eval"]}
         rel = abs(evals["cuda"] - evals["cpu"]) / abs(evals["cpu"])
         log("reference", workload=f"{name}-small", cuda_eval=evals["cuda"],
             cpu_eval=evals["cpu"], rel_diff=rel, tolerance=1e-3,
             metric="rmse" if name == "pmf" else "bce")
         require(rel <= 1e-3, f"{name}: card and CPU disagree: rel {rel}")
         if name == "lr":
-            require(all(results[3]["kernel_launches_by_worker"][w].get(
+            require(all(by_job[3]["kernel_launches_by_worker"][w].get(
                 "adam_sig_update", 0) > 0 for w in ("0", "1")),
                 "lr-small: B2 not launched on the card")
+    return retune_res
 
 
 # -- phase 4c: the in-process isp-pod trainer --------------------------------
@@ -2706,15 +2974,22 @@ def profile_step(dev, steady_step_s: float, reps: int = 5) -> None:
                         for e in top]))
 
 
-def time_kernels(dev, density: float) -> dict:
+# the M leaf, the main path's largest; the single-launch check runs at the
+# main path's density there (the PMF legs' mean sent fraction sets about 52
+# of its elements) and at a denser 4%, which fills every tile's compaction
+WIRE_N = 1431340
+SINGLE_LAUNCH_DENSITIES = {"main path": 52 / WIRE_N, "4%": 0.04}
+
+
+def _wire_inputs(dev, density: float) -> dict:
+    """B4's input at the M leaf with ``density`` of it set, and B5's (its
+    mask, its values, a target)."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ref, significance, wire_pack
+    from repro_torch.kernels import ref
 
-    n = 1431340  # the M leaf, the main path's largest
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    u, x, r = (t.to(dev) for t in _inputs(n, seed=7))
+    n = WIRE_N
     rng = np.random.default_rng(11)
     sig_np = np.zeros(n, np.float32)
     hit = rng.random(n) < density
@@ -2723,20 +2998,75 @@ def time_kernels(dev, density: float) -> dict:
     nnz = int(hit.sum())
     mask, _, cvals, _, _, _ = ref.wire_pack_ref(sig, torch.float32)
     cvals = cvals[:nnz].contiguous()
-    tgt = torch.randn(n, device=dev)
+    return {"sig": sig, "nnz": nnz, "mask": mask, "cvals": cvals,
+            "half": cvals.to(torch.bfloat16),
+            "tgt": torch.randn(n, device=dev)}
+
+
+def _wire_calls(w: dict) -> dict:
+    """B4, B5 and B5's decode-only forms on ``_wire_inputs``."""
+    import torch
+
+    from repro_torch.kernels import wire_pack
+
+    n = WIRE_N
+    return {
+        "wire_pack": lambda: wire_pack.wire_pack(w["sig"], torch.float32),
+        "wire_unpack_add": lambda: wire_pack.wire_unpack_add(
+            w["tgt"], w["mask"], w["cvals"]),
+        "wire_unpack float32": lambda: wire_pack.wire_unpack(
+            w["mask"], w["cvals"], n, torch.float32),
+        "wire_unpack bfloat16": lambda: wire_pack.wire_unpack(
+            w["mask"], w["half"], n, torch.bfloat16),
+    }
+
+
+def check_single_launches(dev) -> dict:
+    """B4, B5 and B5's decode-only forms must each issue exactly one
+    device operation a call (profiler counts: no memset, no second
+    kernel), at the M leaf at each of ``SINGLE_LAUNCH_DENSITIES``. Checked
+    right after the build, while the process's tracer is fresh: late in a
+    long run it has been seen to record nothing at all in three windows
+    running. Returns each call's count at the main path's density."""
+    out = {}
+    for label, density in SINGLE_LAUNCH_DENSITIES.items():
+        w = _wire_inputs(dev, density)
+        counts = {name: _single_launch(name, fn)[1]
+                  for name, fn in _wire_calls(w).items()}
+        log("single-launch", n=WIRE_N, density=label, nnz=w["nnz"],
+            device_operations_a_call=json.dumps(counts))
+        out.setdefault("main path", counts)
+    return out["main path"]
+
+
+def time_kernels(dev, density: float, single: dict) -> dict:
+    """Each FaaS kernel and its plain version at the M leaf; ``single`` is
+    ``check_single_launches``'s counts, logged beside B4's and B5's
+    times."""
+    import torch
+
+    from repro_torch.kernels import ref, significance
+
+    n = WIRE_N
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    u, x, r = (t.to(dev) for t in _inputs(n, seed=7))
+    w = _wire_inputs(dev, density)
+    sig, nnz, mask, cvals, tgt = (w[k] for k in ("sig", "nnz", "mask",
+                                                  "cvals", "tgt"))
+    calls = _wire_calls(w)
     cases = {
         "significance_filter": (
             lambda: significance.significance_filter(u, x, r, 0.5),
             lambda: ref.significance_ref(u, x, r, 0.5),
             20 * n, 5 * n),
         "wire_pack": (
-            lambda: wire_pack.wire_pack(sig, torch.float32),
+            calls["wire_pack"],
             lambda: ref.wire_pack_ref(sig, torch.float32),
             # x read; mask, dense values, residual, nnz compacted values
             # and indices, and the count written
             4 * n + (n + 7) // 8 + 4 * n + 4 * n + 8 * nnz + 4, 2 * n),
         "wire_unpack_add": (
-            lambda: wire_pack.wire_unpack_add(tgt, mask, cvals),
+            calls["wire_unpack_add"],
             lambda: ref.wire_unpack_add_ref(tgt, mask, cvals),
             # target, mask and nnz values read; the sum written
             4 * n + (n + 7) // 8 + 4 * nnz + 4 * n, n),
@@ -2751,8 +3081,8 @@ def time_kernels(dev, density: float) -> dict:
                     >= flops / FP32_FLOPS else "operations")
         if name == "significance_filter":
             device_ms, per_call = _device_profile(kern)
-        else:  # B4, B5: one single-pass launch
-            device_ms, per_call = _single_launch(name, kern)
+        else:  # B4, B5: one single-pass launch, counted after the build
+            device_ms, per_call = _device_ms(kern), single[name]
         log("kernel-time", kernel=name, n=n, nnz=nnz, ms=t_cold,
             ms_l2warm=t_warm, device_ms_l2warm=device_ms,
             launches_per_call=per_call, plain_ms=p_cold, bound_ms=bound,
@@ -2762,18 +3092,13 @@ def time_kernels(dev, density: float) -> dict:
                      "bound_by": bound_by, "library_ms": None}
     # B5's decode-only form at the same leaf: the codec's decode into a
     # float32 leaf, and into a bf16 leaf from bf16 values
-    half = cvals.to(torch.bfloat16)
-    for label, kern, nbytes in (
-            ("float32", lambda: wire_pack.wire_unpack(mask, cvals, n,
-                                                      torch.float32),
-             (n + 7) // 8 + 4 * nnz + 4 * n),
-            ("bfloat16", lambda: wire_pack.wire_unpack(mask, half, n,
-                                                       torch.bfloat16),
-             (n + 7) // 8 + 2 * nnz + 2 * n)):
-        device_ms, per_call = _single_launch(f"wire_unpack {label}", kern)
+    for label, nbytes in (("float32", (n + 7) // 8 + 4 * nnz + 4 * n),
+                          ("bfloat16", (n + 7) // 8 + 2 * nnz + 2 * n)):
+        kern = calls[f"wire_unpack {label}"]
         log("kernel-time", kernel="wire_unpack", target=label, n=n, nnz=nnz,
             ms_l2warm=_time(kern, dev, 50, False, flush),
-            device_ms_l2warm=device_ms, launches_per_call=per_call,
+            device_ms_l2warm=_device_ms(kern),
+            launches_per_call=single[f"wire_unpack {label}"],
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
     out.update(time_adam(dev, flush))
     out.update(time_lm_kernels(dev, flush))
@@ -3029,6 +3354,7 @@ def main() -> int:
     check_wire_stress(dev)
     check_pod_kernels(dev, err)
     check_reintegration(dev)
+    single = check_single_launches(dev)
     err["flash_attention"] = max(check_flash(dev),
                                  check_attention_grads(dev))
     err["slstm_scan"] = check_slstm(dev)
@@ -3040,33 +3366,38 @@ def main() -> int:
         done("straggler duel")
         chaos = chaos_leg(tmp, runs)
         done("chaos")
+        tune = topology_tune_leg(tmp)
+        done("topology tune")
         pods = pod_paths(tmp)
         flats = flat_paths(tmp)
         done("in-process legs")
-        invariants(tmp, runs)
+        retune = invariants(tmp, runs, tune)
         done("invariants")
         served = serve_paths(tmp)
         done("serving")
     pod_in_process(dev)
     flat_in_process(dev)
+    done("in-process profiles")
     train_card_vs_cpu(dev)
     card_vs_cpu(dev)
+    done("card against CPU")
     profile_serve(dev)
     done("profiles and references")
     sim_launches = simulator_phase(dev, err)
     done("simulator")
     sent = [r["sent_fraction"] for r in runs["pmf_bitmap"][1]["history"]]
-    times = time_kernels(dev, density=sum(sent) / len(sent))
+    times = time_kernels(dev, density=sum(sent) / len(sent), single=single)
     profile_step(dev, steady(runs["pmf_bitmap"][1], 5)["step_s"])
     done("times")
 
-    # launches: every main-path leg, the chaos leg and every serving run,
-    # each counted from 0 in fresh processes, and the simulator's jobs,
-    # each from 0
+    # launches: every main-path leg, the chaos leg, both topology legs and
+    # every serving run, each counted from 0 in fresh processes, and the
+    # simulator's jobs, each from 0
     launches = {k: 0 for k in KERNELS}
     counted = [c for _, res in runs.values()
                for c in res["kernel_launches_by_worker"].values()]
-    counted += list(chaos["kernel_launches_by_worker"].values())
+    for res in (chaos, tune[1], retune):
+        counted += list(res["kernel_launches_by_worker"].values())
     counted += [res["kernel_launches"] for res in served.values()]
     counted += [pods[label]["kernel_launches"] for label, _ in POD_LEGS]
     counted += [res["kernel_launches"] for res in flats.values()]

@@ -3,7 +3,7 @@
 ``get_arch(name)`` returns the full-size ArchConfig, ``get_smoke(name)``
 the reduced same-family config the CPU tests use. ``ARCH_NAMES`` lists all
 ten archs of the JAX package; the eight not yet ported raise
-``NotImplementedError`` (ROADMAP.md A11).
+``NotImplementedError`` (ROADMAP.md §A3).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def _module(name: str):
     if name not in _MODULES:
         raise NotImplementedError(
             f"{name}: not ported yet; the port runs {tuple(_MODULES)} "
-            f"(ROADMAP.md A11)")
+            f"(ROADMAP.md §A3)")
     return _MODULES[name]
 
 

@@ -180,6 +180,133 @@ class ScaleInAutoTuner:
         }
 
 
+@dataclasses.dataclass(frozen=True)
+class TopologyTunerConfig:
+    explore_steps: int = 6  # measured (post-warmup) steps per cell
+    # dropped per cell: the respawned workers' first step after a re-shard
+    # (module loads, the first launches and allocations on the card)
+    warmup_steps: int = 1
+    rel_tolerance: float = 0.05  # p50s within this are a tie
+
+
+class TopologyTuner:
+    """Explore-then-commit co-tuner over topology cells (DESIGN.md §16).
+
+    A *cell* is a full knob assignment ``{n_brokers, transport,
+    wire_scheme, shard_split_bytes, partitioner}``; cell 0 is the topology
+    the job started with. The tuner spends ``warmup_steps +
+    explore_steps`` measured steps in each cell (the warm-up is dropped),
+    then commits to the cell with the lowest step-duration p50. Cells
+    whose p50s are within ``rel_tolerance`` of the best are tied; ties
+    break on the simulator's cost model (``CommModel.
+    indirect_exchange_time`` with the cell's broker count), then on p50,
+    then on cell order.
+
+    The tuner only recommends: ``next_action()`` returns ``("explore",
+    cell)``, ``("commit", cell)`` or ``None``, and the supervisor performs
+    the WAL-coordinated handover. ``abandon()`` stops the experiment (the
+    job is too close to its end for another fence). Host-side numpy, as
+    the scale-in tuner is.
+    """
+
+    def __init__(self, cells: list, config: Optional[TopologyTunerConfig]
+                 = None, comm=None, bytes_per_step: float = 0.0,
+                 n_workers: int = 1):
+        if not cells:
+            raise ValueError("TopologyTuner needs at least one cell")
+        self.cells = [dict(c) for c in cells]
+        self.config = config or TopologyTunerConfig()
+        self.comm = comm
+        self.bytes_per_step = float(bytes_per_step)
+        self.n_workers = int(n_workers)
+        self.active = 0
+        self.committed: Optional[int] = None
+        self._abandoned = False
+        self._durs: list[list[float]] = [[] for _ in self.cells]
+        self._phases: list[dict[str, list[float]]] = [{} for _ in self.cells]
+
+    def observe(self, dur_s: float, phases: Optional[dict] = None) -> None:
+        """Feed one measured step of the active cell: its wall duration
+        and the per-phase seconds the workers report."""
+        self._durs[self.active].append(float(dur_s))
+        for k, v in (phases or {}).items():
+            self._phases[self.active].setdefault(k, []).append(float(v))
+
+    def _steady(self, i: int) -> list[float]:
+        return self._durs[i][self.config.warmup_steps:]
+
+    def cell_stats(self, i: int) -> dict:
+        durs = self._steady(i)
+        w = self.config.warmup_steps
+        return {
+            "cell": dict(self.cells[i]),
+            "n_steps": len(durs),
+            "p50": float(np.percentile(durs, 50)) if durs else None,
+            "p95": float(np.percentile(durs, 95)) if durs else None,
+            "phase_p50": {k: float(np.percentile(v[w:], 50))
+                          for k, v in self._phases[i].items() if v[w:]},
+            "phase_p95": {k: float(np.percentile(v[w:], 95))
+                          for k, v in self._phases[i].items() if v[w:]},
+        }
+
+    def _model_cost(self, cell: dict) -> float:
+        if self.comm is None:
+            return 0.0
+        return float(self.comm.indirect_exchange_time(
+            self.bytes_per_step, self.n_workers,
+            n_redis=int(cell.get("n_brokers", 1))))
+
+    def _pick_best(self) -> int:
+        p50s = [float(np.percentile(self._steady(i), 50))
+                if self._steady(i) else float("inf")
+                for i in range(len(self.cells))]
+        best = min(p50s)
+        tied = [i for i, p in enumerate(p50s)
+                if p <= best * (1.0 + self.config.rel_tolerance)]
+        return min(tied, key=lambda i: (self._model_cost(self.cells[i]),
+                                        p50s[i], i))
+
+    def next_action(self) -> Optional[tuple[str, dict]]:
+        """``None`` (keep measuring), ``("explore", cell)`` (re-shard to
+        the next cell), or ``("commit", cell)`` (final: re-shard there iff
+        it differs from the current topology).
+
+        An explore action does not advance the active cell: steps
+        published between the fence's mint and the handover's completion
+        still ran the old topology and belong to the old cell; the
+        supervisor calls ``cell_started()`` once the handover completed."""
+        if self.committed is not None or self._abandoned:
+            return None
+        need = self.config.warmup_steps + self.config.explore_steps
+        if len(self._durs[self.active]) < need:
+            return None
+        if self.active + 1 < len(self.cells):
+            return ("explore", dict(self.cells[self.active + 1]))
+        best = self._pick_best()
+        self.committed = best
+        self.active = best
+        return ("commit", dict(self.cells[best]))
+
+    def cell_started(self) -> None:
+        """The handover to the next explore cell completed: observations
+        from here on belong to it. A no-op after the commit."""
+        if self.committed is None and self.active + 1 < len(self.cells):
+            self.active += 1
+
+    def abandon(self) -> None:
+        self._abandoned = True
+
+    def summary(self) -> dict:
+        return {
+            "cells": [self.cell_stats(i) for i in range(len(self.cells))],
+            "chosen": self.committed,
+            "chosen_cell": (None if self.committed is None
+                            else dict(self.cells[self.committed])),
+            "committed": self.committed is not None,
+            "abandoned": self._abandoned,
+        }
+
+
 def evict_and_reintegrate(replicas, evicted: int, active_mask):
     """The simulator's eviction (paper §4.2): the leaving worker publishes
     its replica and every active worker averages it into its own,

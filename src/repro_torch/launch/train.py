@@ -47,11 +47,15 @@ Two runtimes, as in the JAX package:
   through ``faults.run_job_resilient``), ``--prewarm`` spawns each next
   invocation ahead of its boundary, and ``--hostperf`` launches the
   workers under ``launch/hostperf.py``'s environment.
+  ``--retune '3:{"n_brokers": 2, "transport": "shm"}'`` (repeatable)
+  re-shards the update store live when the frontier reaches step 3, and
+  ``--topology-tune`` lets the online co-tuner pick the shard count and
+  transport (DESIGN.md §16); both chunk the leaves at 64 KiB over the
+  consistent-hash ring unless ``--shard-split-bytes`` says otherwise.
 
 Both run on ``--device`` (default ``cuda``; ``cpu`` only when asked for)
 and print their result as JSON. The JAX driver's fleet scheduling
-(``--jobs``) and topology tuning (``--retune``, ``--topology-tune``) are
-not yet ported and raise.
+(``--jobs``) is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -490,15 +494,45 @@ def train(args) -> dict:
     return result
 
 
+def _parse_retunes(specs) -> tuple:
+    """--retune STEP:JSON (repeatable) -> scripted_retunes tuples."""
+    out = []
+    for s in specs or ():
+        step, sep, body = s.partition(":")
+        if not sep:
+            raise SystemExit(f"--retune {s!r}: expected STEP:JSON")
+        try:
+            out.append((int(step), json.loads(body)))
+        except (ValueError, json.JSONDecodeError) as e:
+            raise SystemExit(f"--retune {s!r}: expected STEP:JSON ({e})")
+    return tuple(out)
+
+
+def _topology_args(args) -> dict:
+    """The topology flags as FaaSJobConfig fields. A live re-shard moves
+    little data only when leaves are chunked, so with tuning or retunes on
+    and no --shard-split-bytes the job takes the consistent-hash ring over
+    64 KiB chunks; the plain path keeps whole leaves and the greedy
+    partitioner."""
+    retunes = _parse_retunes(getattr(args, "retune", None))
+    topo = bool(getattr(args, "topology_tune", False))
+    split = int(getattr(args, "shard_split_bytes", 0) or 0)
+    partitioner = "greedy"
+    if (topo or retunes) and split == 0:
+        split = 65536
+        partitioner = "ring"
+    return {"topology_tune": topo, "scripted_retunes": retunes,
+            "partitioner": partitioner, "shard_split_bytes": split}
+
+
 def train_faas(args) -> dict:
     """Run the job on the multi-process FaaS runtime."""
     from repro_torch.runtime.faults import parse_chaos_arg, run_job_resilient
     from repro_torch.runtime.supervisor import FaaSJobConfig, run_job
 
-    for flag in ("jobs", "retune", "topology_tune"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: not yet ported")
+    if args.jobs:
+        raise NotImplementedError("--jobs: not yet ported")
+    topo = _topology_args(args)
     chaos = None
     if args.chaos:
         chaos = parse_chaos_arg(args.chaos, n_workers=args.workers,
@@ -528,7 +562,6 @@ def train_faas(args) -> dict:
         transport=args.transport,
         consistency=args.consistency,
         slack=args.slack,
-        shard_split_bytes=args.shard_split_bytes,
         prewarm=args.prewarm,
         autotune=args.autotune,
         tuner=AutoTunerConfig(
@@ -537,6 +570,7 @@ def train_faas(args) -> dict:
         ),
         seed=args.seed,
         chaos=None if chaos is None else chaos.to_spec(),
+        **topo,
     )
     if chaos is not None and any(e.kind == "supervisor_kill"
                                  for e in chaos.events):
@@ -616,7 +650,20 @@ def main() -> None:
                     "waits only for steps <= t - slack - 1)")
     ap.add_argument("--slack", type=int, default=3,
                     help="faas: SSP staleness bound (ignored under isp)")
-    ap.add_argument("--shard-split-bytes", type=int, default=0)
+    ap.add_argument("--shard-split-bytes", type=int, default=0,
+                    help="faas: split update-store leaves into chunks of at "
+                    "most this many bytes before sharding (0 = whole "
+                    "leaves; tuning and retunes default it to 65536 with "
+                    "the consistent-hash ring partitioner)")
+    ap.add_argument("--topology-tune", action="store_true",
+                    help="faas: co-tune the shard count and the transport "
+                    "online: explore-then-commit over neighbouring cells "
+                    "with live re-sharding at epoch fences (DESIGN.md "
+                    "§16); requires --consistency isp and no --prewarm")
+    ap.add_argument("--retune", action="append", metavar="STEP:JSON",
+                    help="faas: one live re-shard when the frontier "
+                    "reaches STEP, e.g. '4:{\"n_brokers\": 2}' "
+                    "(repeatable; disables the online tuner)")
     ap.add_argument("--run-dir", default=None)
     ap.add_argument("--chaos", default=None, metavar="SEED:SPEC",
                     help="faas: seeded fault-injection plan "
@@ -630,9 +677,7 @@ def main() -> None:
     ap.add_argument("--hostperf", action="store_true",
                     help="faas: spawn workers under the tuned host env "
                     "(launch/hostperf.py)")
-    # JAX-driver options that are not yet ported: accepted, then refused
-    ap.add_argument("--topology-tune", action="store_true")
-    ap.add_argument("--retune", action="append")
+    # a JAX-driver option that is not yet ported: accepted, then refused
     ap.add_argument("--jobs", default=None)
     args = ap.parse_args()
     res = RUNTIMES[args.runtime](args)

@@ -12,7 +12,7 @@ Two paths, as in the JAX package:
 Softmax math is float32 regardless of the activation type. Caches are
 updated in place (the JAX package returns new arrays): a decode step
 writes one position of each layer's cache instead of copying it. Sliding
-window (ring cache) and cross attention are not ported (ROADMAP.md A11).
+window (ring cache) and cross attention are not ported (ROADMAP.md §A3).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def _refuse(spec: BlockSpec) -> None:
     if spec.mixer is not Mixer.GLOBAL_ATTN:
         raise NotImplementedError(
             f"{spec.mixer.value}: only global attention is ported "
-            f"(ROADMAP.md A11: ring cache and cross attention are still to "
+            f"(ROADMAP.md §A3: ring cache and cross attention are still to "
             f"port)")
 
 

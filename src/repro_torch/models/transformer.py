@@ -11,7 +11,7 @@ dimension), so both cross between the packages as plain leaves
 Ported: dense decoders of global attention with SwiGLU / GeGLU / GELU FF
 (phi4-mini) and xLSTM stacks (xlstm-1.3b). MoE, RG-LRU, sliding-window and
 cross attention, and the audio and VLM families raise
-``NotImplementedError`` (ROADMAP.md A11).
+``NotImplementedError`` (ROADMAP.md §A3).
 
 API: ``param_defs()`` / ``init(seed, device)`` / ``cache_defs(batch,
 max_len)`` / ``init_cache(batch, max_len, device)``;
@@ -47,7 +47,7 @@ _PORTED_MIXERS = (Mixer.GLOBAL_ATTN, Mixer.MLSTM, Mixer.SLSTM)
 
 
 def _refuse(cfg: ArchConfig) -> None:
-    """Raise for what the port does not take yet (ROADMAP.md A11)."""
+    """Raise for what the port does not take yet (ROADMAP.md §A3)."""
     what = []
     if cfg.family not in _PORTED_FAMILIES:
         what.append(f"family {cfg.family!r}")
@@ -62,7 +62,7 @@ def _refuse(cfg: ArchConfig) -> None:
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(sorted(set(what)))} not ported yet "
-            f"(ROADMAP.md A11)")
+            f"(ROADMAP.md §A3)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,14 +34,24 @@ Owns one training job end to end:
 
 The job's device travels in the job dict, so every worker follows it, as
 do ``consistency`` (``isp``, or bounded-staleness ``ssp`` with ``slack``,
-DESIGN.md §13) and the transport. Not yet ported from the JAX supervisor:
-the topology tuner and live re-sharding, and the fleet.
+DESIGN.md §13) and the transport.
+
+Live topology (DESIGN.md §16): under ``scripted_retunes`` or
+``topology_tune`` the job changes its update-store topology (shard count,
+transport, wire scheme, chunk size, partitioner) while it runs. Each change
+happens at an epoch fence the coordinator mints: every worker parks there
+with a durable checkpoint (``bye:topo-fence``), the supervisor migrates the
+moved chunks through the shards' WALs, commits the new topology on every
+shard and respawns the workers into it. The online co-tuner
+(``core.autotuner.TopologyTuner``) measures each neighbouring cell and
+commits to the fastest. Not yet ported from the JAX supervisor: the fleet.
 
 State machine per worker slot::
 
     spawned -> running -> { done | evicted }          (terminal)
                       \-> invocation-end -> respawn -> running
                       \-> crashed        -> respawn -> running (replay)
+                      \-> topo-fence     -> held -> (handover) -> respawn
 
 (under ``prewarm`` a respawn is the promotion of the held successor).
 """
@@ -64,8 +74,13 @@ from typing import Any, Optional
 
 import numpy as np
 
-from repro_torch.core.autotuner import AutoTunerConfig, ScaleInAutoTuner
-from repro_torch.core.billing import FaaSBill, faas_cost
+from repro_torch.core.autotuner import (
+    AutoTunerConfig,
+    ScaleInAutoTuner,
+    TopologyTuner,
+    TopologyTunerConfig,
+)
+from repro_torch.core.billing import CommModel, FaaSBill, faas_cost
 from repro_torch.runtime import protocol
 from repro_torch.runtime import workload as workload_lib
 from repro_torch.runtime.faults import (
@@ -80,6 +95,10 @@ PyTree = Any
 
 # per-direction ring capacity of each worker<->shard shm segment
 SHM_RING_BYTES = 4 << 20
+
+# the knobs a live re-shard may change
+TOPOLOGY_KNOBS = ("n_brokers", "transport", "wire_scheme",
+                  "shard_split_bytes", "partitioner")
 
 
 @dataclasses.dataclass
@@ -124,6 +143,10 @@ class FaaSJobConfig:
     # segments (same framing, codec and accounted bytes); the
     # supervisor's own control plane always rides TCP
     transport: str = "tcp"
+    # split leaves denser than this many bytes into flat chunks before
+    # shard assignment (0 = whole leaves); 'partitioner' places the keys:
+    # 'greedy' (least-loaded) or 'ring' (consistent hashing: a re-shard
+    # moves few keys)
     shard_split_bytes: int = 0
     partitioner: str = "greedy"
     # pre-warmed invocation respawn (DESIGN.md §14.5): each slot's next
@@ -132,9 +155,21 @@ class FaaSJobConfig:
     prewarm: bool = False
     autotune: bool = False
     tuner: Optional[AutoTunerConfig] = None
+    # live topology tuning (DESIGN.md §16): explore-then-commit over the
+    # cells [start, other shard count, other transport] with a
+    # WAL-coordinated re-shard between cells. Requires consistency='isp'
+    # and no prewarm
+    topology_tune: bool = False
+    topo_explore_steps: int = 6
     scripted_evict_steps: tuple[int, ...] = ()
+    # scripted topology changes ((step, {knob: value, ...}), ...): at
+    # frontier >= step, re-shard to the given (partial) topology; the
+    # deterministic twin of topology_tune
+    scripted_retunes: tuple = ()
     kill_worker_at_step: Optional[tuple[int, int]] = None  # (worker, step)
     kill_broker_at_step: Optional[tuple[int, int]] = None  # (shard, step)
+    # SIGKILL shard k right after the first migrate_read of a handover
+    kill_broker_during_handover: Optional[int] = None
     # the chaos plane (runtime/faults.py, DESIGN.md §17): an expanded
     # FaultPlan spec ({"seed": ..., "events": [...]}); the legacy knobs
     # above compile into the same plan
@@ -185,6 +220,8 @@ class FaaSJobConfig:
         if d.get("tuner"):
             d["tuner"] = AutoTunerConfig(**d["tuner"])
         d["scripted_evict_steps"] = tuple(d.get("scripted_evict_steps") or ())
+        d["scripted_retunes"] = tuple(
+            (int(s), dict(c)) for s, c in (d.get("scripted_retunes") or ()))
         for k in ("kill_worker_at_step", "kill_broker_at_step"):
             if d.get(k) is not None:
                 d[k] = tuple(d[k])
@@ -327,6 +364,8 @@ class _Slot(_Process):
     pre_spawned_mono: float = 0.0
     pre_ready_mono: float = 0.0
     pre_shm_segs: list = dataclasses.field(default_factory=list)
+    # parked at a topology fence: exited cleanly, respawns after handover
+    held: bool = False
 
 
 @dataclasses.dataclass
@@ -359,6 +398,23 @@ class Supervisor:
         if cfg.partitioner not in ("greedy", "ring"):
             raise ValueError(f"partitioner must be 'greedy' or 'ring', got "
                              f"{cfg.partitioner!r}")
+        retunes = []
+        for step, changes in cfg.scripted_retunes or ():
+            bad = set(changes) - set(TOPOLOGY_KNOBS)
+            if bad:
+                raise ValueError(f"scripted_retunes: unknown knobs {bad}")
+            retunes.append((int(step), dict(changes)))
+        if cfg.topology_tune or retunes:
+            if cfg.consistency != "isp":
+                # an SSP pull at step t is served step t - slack - 1: a
+                # post-fence pull would read pre-fence steps against a
+                # re-sharded store
+                raise ValueError(
+                    "live re-sharding requires consistency='isp'")
+            if cfg.prewarm:
+                raise ValueError(
+                    "topology tuning is incompatible with prewarm: a "
+                    "gated successor would span the epoch fence")
         self.plan = cfg.compiled_chaos_plan()
         if self.plan is not None:
             for e in self.plan.events:
@@ -368,12 +424,16 @@ class Supervisor:
                 if e.shard is not None and not 0 <= e.shard < cfg.n_brokers:
                     raise ValueError(f"fault event targets shard "
                                      f"{e.shard} of {cfg.n_brokers}: {e}")
-            if (any(e.kind == "supervisor_kill" for e in self.plan.events)
-                    and not allow_self_kill):
-                raise ValueError(
-                    "a supervisor_kill fault needs the out-of-process "
-                    "runner (faults.run_job_resilient): an in-process "
-                    "supervisor cannot survive killing itself")
+            if any(e.kind == "supervisor_kill" for e in self.plan.events):
+                if not allow_self_kill:
+                    raise ValueError(
+                        "a supervisor_kill fault needs the out-of-process "
+                        "runner (faults.run_job_resilient): an in-process "
+                        "supervisor cannot survive killing itself")
+                if cfg.topology_tune or cfg.scripted_retunes:
+                    raise ValueError(
+                        "supervisor_kill is incompatible with live "
+                        "re-sharding: handover state is not journaled")
         self._resume = resume
         # the journal only pays for itself when a successor could read it
         self._journal_enabled = allow_self_kill or resume
@@ -423,6 +483,29 @@ class Supervisor:
         if cfg.autotune:
             self.tuner = ScaleInAutoTuner(cfg.tuner or AutoTunerConfig(),
                                           cfg.n_workers)
+        # live topology (DESIGN.md §16): cfg keeps the job's starting
+        # point, self.topology what runs now
+        self.topology = {k: getattr(cfg, k) for k in TOPOLOGY_KNOBS}
+        self.topo_gen = 0
+        self._max_brokers = cfg.n_brokers  # the peak shard count: n_redis
+        # a pending handover: {"fence", "changes", "t0" (the mint)}
+        self._handover: Optional[dict] = None
+        self._retunes_pending = retunes
+        self._topo_kill_armed = cfg.kill_broker_during_handover is not None
+        self.retired_shard_stats: list[dict] = []
+        self.topology_events: list[dict] = []
+        self._topo_cell_start = 1  # first step measured for the active cell
+        self.topo_tuner: Optional[TopologyTuner] = None
+        if cfg.topology_tune and not retunes:
+            cur = dict(self.topology)
+            flip_brokers = dict(
+                cur, n_brokers=2 if cur["n_brokers"] == 1 else 1)
+            flip_transport = dict(
+                cur, transport="shm" if cur["transport"] == "tcp" else "tcp")
+            self.topo_tuner = TopologyTuner(
+                [cur, flip_brokers, flip_transport],
+                TopologyTunerConfig(explore_steps=cfg.topo_explore_steps),
+                comm=CommModel(), n_workers=cfg.n_workers)
 
     # -- process management ---------------------------------------------------
 
@@ -518,7 +601,7 @@ class Supervisor:
                     self._conns[bs.shard].close()
                     self._conns[bs.shard] = None
                 self._spawn_broker(bs)
-                if self.cfg.transport == "shm":
+                if self.topology["transport"] == "shm":
                     # the shard's serving threads died with it: hand it
                     # every live worker's segment again (each re-serve
                     # resets that ring pair and bumps its generation, so
@@ -613,7 +696,7 @@ class Supervisor:
 
     def _spawn(self, slot: _Slot) -> None:
         base = (self._setup_worker_shm(slot)
-                if self.cfg.transport == "shm" else None)
+                if self.topology["transport"] == "shm" else None)
         slot.adopted_pid = None
         slot.proc = self._popen_worker(
             self._worker_cmd(slot, base),
@@ -645,7 +728,7 @@ class Supervisor:
             if os.path.exists(p):
                 os.unlink(p)
         base = None
-        if self.cfg.transport == "shm":
+        if self.topology["transport"] == "shm":
             # the next invocation's family, beside the live one
             base, slot.pre_shm_segs = self._serve_segments(slot)
         slot.pre_proc = self._popen_worker(
@@ -758,11 +841,20 @@ class Supervisor:
         slot.proc = None
         slot.adopted_pid = None
         slot.ended_headless = False
-        held = slot.pre_proc is not None and slot.pre_proc.poll() is None
+        gated = slot.pre_proc is not None and slot.pre_proc.poll() is None
         if status in ("bye:done", "bye:evicted"):
             slot.terminal = status[len("bye:"):]
             self._teardown_worker_shm(slot)
             self._abort_prewarmed(slot)
+            return
+        if status == "bye:topo-fence":
+            # parked at the topology fence with a durable fence-1
+            # checkpoint: it respawns once the handover migrated the store
+            # (its segments die now: a transport switch may mean the next
+            # invocation is not on shm)
+            self._teardown_worker_shm(slot)
+            self._abort_prewarmed(slot)
+            slot.held = True
             return
         if status != "bye:invocation-end":
             # no goodbye: the process died — respawn; it restores its
@@ -772,7 +864,7 @@ class Supervisor:
                 "worker": slot.worker, "exit_code": code,
                 "restored_step": self._restored_step(slot),
                 "at_frontier": self._frontier})
-        if held:
+        if gated:
             self._promote_prewarmed(slot)
         else:
             self._abort_prewarmed(slot)
@@ -829,6 +921,10 @@ class Supervisor:
             self._frontier = max(self._frontier, row["step"])
             if self.tuner is not None:
                 self.tuner.observe(row["step"], row["loss"], row["dur_s"])
+            if (self.topo_tuner is not None
+                    and row["step"] >= self._topo_cell_start):
+                # steps before the cell's fence ran the previous topology
+                self.topo_tuner.observe(row["dur_s"], row.get("phase"))
         self.evictions = {int(k): v for k, v in resp["evictions"].items()}
         self.bye_launches = resp.get("bye_launches", self.bye_launches)
         self.bye_wall = resp.get("bye_wall", self.bye_wall)
@@ -853,6 +949,182 @@ class Supervisor:
             "at_frontier": self._frontier, "s_delta": s_delta,
             "reason": reason})
         return True
+
+    # -- live topology handover (DESIGN.md §16) --------------------------------
+
+    def _initiate_retune(self, changes: dict) -> bool:
+        """Ask the coordinator for an epoch fence toward ``changes``.
+        True when the request is settled (a handover pending, or a no-op
+        because nothing changes), False when the coordinator refused
+        (past the end): a permanent refusal. Both are recorded."""
+        diff = {k: v for k, v in changes.items()
+                if self.topology.get(k) != v}
+        if not diff:
+            self.topology_events.append(
+                {"gen": self.topo_gen, "fence": None, "changes": {},
+                 "noop": True, "at_frontier": self._frontier})
+            return True
+        resp, _ = self._rpc({"t": "topo_begin"})
+        if not resp.get("granted"):
+            self.topology_events.append(
+                {"gen": self.topo_gen, "fence": None, "changes": diff,
+                 "refused": resp.get("reason", "?"),
+                 "at_frontier": self._frontier})
+            return False
+        self._handover = {"fence": int(resp["fence"]), "changes": diff,
+                          "t0": time.monotonic()}
+        return True
+
+    def _move_map(self, old: dict, new: dict
+                  ) -> tuple[dict[tuple[int, int], list], int]:
+        """The stored identities a handover moves, ``{(src, dest):
+        [[leaf_key, offset], ...]}``, and the number of subkeys the old
+        chunking has. Stored entries are chunked at the old threshold:
+        each old chunk moves to the new owner of the new chunk that holds
+        its start offset, which keeps every element stored exactly once
+        (post-fence pulls never read pre-fence steps)."""
+        from repro_torch.runtime import sharding
+
+        params0 = self.wl.params0
+        a_old = sharding.tree_assignment(
+            params0, int(old["n_brokers"]),
+            split_bytes=int(old["shard_split_bytes"]),
+            partitioner=old["partitioner"])
+        a_new = sharding.tree_assignment(
+            params0, int(new["n_brokers"]),
+            split_bytes=int(new["shard_split_bytes"]),
+            partitioner=new["partitioner"])
+        owner_new = sharding.offset_owner(
+            params0, int(new["shard_split_bytes"]), a_new)
+        subleaves = sharding.tree_subleaves(
+            params0, int(old["shard_split_bytes"]))
+        moves: dict[tuple[int, int], list] = {}
+        for leaf_key, subkey, off, _n in subleaves:
+            src, dest = a_old[subkey], owner_new(leaf_key, off)
+            if src != dest:
+                moves.setdefault((src, dest), []).append([leaf_key, off])
+        return moves, len(subleaves)
+
+    def _complete_handover(self) -> None:
+        """Every live worker is parked at the fence with a durable fence-1
+        checkpoint: migrate the moved identities, commit the new topology,
+        respawn. Every mutation rides the shards' WALs and idempotent
+        migrate ops, so a SIGKILL on either side of a migration replays
+        to the same state."""
+        hand = self._handover
+        fence = hand["fence"]
+        t_migrate = time.monotonic()
+        # the last pre-fence telemetry closes the tuner's cell
+        self._poll()
+        old = dict(self.topology)
+        new = dict(old, **hand["changes"])
+        old_n, new_n = len(self.shards), int(new["n_brokers"])
+        moves, total_subkeys = self._move_map(old, new)
+        gen = self.topo_gen + 1
+
+        # job.json first: every shard (re)spawned from here on reads the
+        # new topology; the migrate ops never consult it
+        job = self.cfg.job_dict(self.wl.n_batches)
+        job.update({k: new[k] for k in TOPOLOGY_KNOBS}, topo_gen=gen)
+        with open(os.path.join(self._broker_dir(), "job.json"), "w") as f:
+            json.dump(job, f, indent=1)
+
+        if new_n > old_n:
+            # grow: append every new slot first (len(self.shards) is the
+            # --n-shards each spawn reads), then spawn each and install the
+            # eviction table so the new barriers agree on membership
+            for s in range(old_n, new_n):
+                self.shards.append(_BrokerShard(shard=s))
+                self._conns.append(None)
+            for s in range(old_n, new_n):
+                self._spawn_broker(self.shards[s])
+                for w, estep in self.evictions.items():
+                    self._rpc({"t": "evict_apply", "worker": w,
+                               "step": estep}, shard=s)
+
+        moved_subkeys = 0
+        for src, dest in sorted(moves):
+            moved = moves[(src, dest)]
+            moved_subkeys += len(moved)
+            resp, blob = self._rpc({"t": "migrate_read", "moved": moved},
+                                   shard=src)
+            if self._topo_kill_armed:
+                # the replay-safety cell: the retries below ride the
+                # shard's respawn and WAL replay
+                self._topo_kill_armed = False
+                self.shards[self.cfg.kill_broker_during_handover].sigkill()
+            self._rpc({"t": "migrate_in", "gen": gen, "src": src,
+                       "parts": resp["parts"]}, payload=blob, shard=dest)
+        # drop only after every destination acked its migrate_in: a source
+        # with several destinations must not lose unread slices
+        for src in sorted({s for s, _ in moves}):
+            moved = [m for (s, _d), ms in moves.items() if s == src
+                     for m in ms]
+            self._rpc({"t": "migrate_drop", "moved": moved}, shard=src)
+
+        # commit on every shard of the new topology (clears the fence on
+        # the coordinator; the job dict respawned workers hello into)
+        for s in range(new_n):
+            self._rpc({"t": "topo_commit", "gen": gen, "n_shards": new_n,
+                       **{k: new[k] for k in TOPOLOGY_KNOBS}}, shard=s)
+        if new_n < old_n:
+            # shrink: the move map emptied shards >= new_n. They leave
+            # self.shards before their shutdown, so no retry's reap can
+            # respawn them; their shutdown stats join the result's sums
+            retired = self.shards[new_n:]
+            conns = self._conns[new_n:]
+            del self.shards[new_n:]
+            del self._conns[new_n:]
+            for bs, conn in zip(retired, conns):
+                if conn is not None:
+                    conn.close()
+                resp, _ = protocol.request(bs.addr, {"t": "shutdown"},
+                                           timeout=self.rpc_policy.timeout_s)
+                self.retired_shard_stats.append(resp)
+                bs.wait_dead()
+
+        self.topology = new
+        self.topo_gen = gen
+        self._max_brokers = max(self._max_brokers, new_n)
+        self._topo_cell_start = fence
+        self.topology_events.append({
+            "gen": gen, "fence": fence, "changes": hand["changes"],
+            "moved_subkeys": moved_subkeys, "total_subkeys": total_subkeys,
+            "at_frontier": self._frontier,
+            # seconds from the fence's mint to the respawns, and of this
+            # method's own part (a new shard's spawn, migration, commit)
+            "handover_s": time.monotonic() - hand["t0"],
+            "migrate_s": time.monotonic() - t_migrate})
+        self._handover = None
+        if self.topo_tuner is not None:
+            # rows from the fence on belong to the next cell
+            self.topo_tuner.cell_started()
+        for slot in self.slots:
+            if slot.held:
+                slot.held = False
+                self._spawn(slot)
+
+    def _topology_step(self) -> None:
+        """Start the next scripted retune once its step is reached, or
+        else act on the co-tuner's recommendation. A scripted retune is
+        settled either way (a past-end refusal is permanent, a retry
+        would spin); a refused tuner action abandons the experiment."""
+        if self._retunes_pending:
+            nxt, changes = self._retunes_pending[0]
+            if self._frontier >= nxt:
+                self._initiate_retune(changes)
+                self._retunes_pending.pop(0)
+        elif self.topo_tuner is not None and self.history:
+            last = self.history[-1]
+            p = max(int(last.get("p_active") or 1), 1)
+            # per-worker bytes a step for the cost model's tie-break,
+            # current before next_action picks a winner
+            self.topo_tuner.bytes_per_step = (
+                float(last.get("wire_bytes") or 0.0) / p)
+            self.topo_tuner.n_workers = p
+            action = self.topo_tuner.next_action()
+            if action is not None and not self._initiate_retune(action[1]):
+                self.topo_tuner.abandon()
 
     # -- chaos plane (runtime/faults.py, DESIGN.md §17) ------------------------
 
@@ -1012,7 +1284,9 @@ class Supervisor:
         the live pool: pids, ports, invocation counters and the billing
         and telemetry accumulators. Monotonic times are stored as wall
         clock, for the successor to rebase onto its own monotonic clock.
-        JAX's schema without the topology fields."""
+        JAX's schema (the topology, its generation, the peak shard count,
+        the topology events, the retired shards' stats and each slot's
+        ``held``), plus the port's prewarm and chaos fields."""
         if not self._journal_enabled:
             return
         now_m, now_w = time.monotonic(), time.time()
@@ -1024,6 +1298,9 @@ class Supervisor:
             "version": 1,
             "t_job0_wall": wall(self._t_job0),
             "shm_token": self._shm_token,
+            "topology": self.topology,
+            "topo_gen": self.topo_gen,
+            "max_brokers": self._max_brokers,
             "shards": [
                 {"shard": bs.shard,
                  "addr": list(bs.addr) if bs.addr else None,
@@ -1040,7 +1317,8 @@ class Supervisor:
                              else None),
                  "pre_spawned_wall": (wall(s.pre_spawned_mono)
                                       if s.pre_proc is not None else None),
-                 "pre_shm_segs": list(s.pre_shm_segs)}
+                 "pre_shm_segs": list(s.pre_shm_segs),
+                 "held": s.held}
                 for s in self.slots
             ],
             "lifetimes": self.lifetimes,
@@ -1049,6 +1327,8 @@ class Supervisor:
             "respawns": self.respawns,
             "broker_respawns": self.broker_respawns,
             "cold_start_overlaps": self.cold_start_overlaps,
+            "retired_shard_stats": self.retired_shard_stats,
+            "topology_events": self.topology_events,
             "scripted_fired": self._scripted_fired,
             "chaos_fired": sorted(self._chaos_fired),
             "chaos_events": self.chaos_events,
@@ -1094,6 +1374,11 @@ class Supervisor:
 
         self._t_job0 = mono(st["t_job0_wall"])
         self._shm_token = st["shm_token"]
+        self.topology = st["topology"]
+        self.topo_gen = st["topo_gen"]
+        self._max_brokers = st["max_brokers"]
+        self.retired_shard_stats = st["retired_shard_stats"]
+        self.topology_events = st["topology_events"]
         self.lifetimes = st["lifetimes"]
         self.evictions = {int(k): v for k, v in st["evictions"].items()}
         self.scale_events = st["scale_events"]
@@ -1135,8 +1420,8 @@ class Supervisor:
             s = _Slot(worker=js["worker"], invocations=js["invocations"],
                       terminal=js["terminal"], inv_start=js["inv_start"],
                       spawned_at=mono(js["spawned_wall"]),
-                      shm_segs=list(js["shm_segs"]))
-            if js["terminal"] is None:
+                      shm_segs=list(js["shm_segs"]), held=js["held"])
+            if js["terminal"] is None and not s.held:
                 s.adopted_pid = js["pid"]
                 s.ended_headless = not _pid_alive(js["pid"])
                 adopted_w += not s.ended_headless
@@ -1195,7 +1480,13 @@ class Supervisor:
                         self._reap(slot, statuses)
                 self._maybe_prespawn()
                 self._scan_prewarm_ready()
-                if all(s.alive for s in self.slots if s.terminal is None):
+                # topology handover (DESIGN.md §16): every live worker is
+                # parked at the fence, so migrate the store and resume
+                if self._handover is not None and all(
+                        s.terminal is not None or s.held for s in self.slots):
+                    self._complete_handover()
+                if self._handover is None and all(
+                        s.alive for s in self.slots if s.terminal is None):
                     if self._scripted_fired < len(cfg.scripted_evict_steps):
                         nxt = cfg.scripted_evict_steps[self._scripted_fired]
                         if (self._frontier >= nxt
@@ -1206,6 +1497,7 @@ class Supervisor:
                         if decision.remove_worker:
                             self._evict_victim(decision.reason,
                                                decision.s_delta)
+                    self._topology_step()
                 self._save_journal()
                 if all(s.terminal is not None for s in self.slots):
                     self._poll()
@@ -1223,6 +1515,9 @@ class Supervisor:
             self._stopping = True
             shard_stats = [self._rpc({"t": "shutdown"}, shard=s)[0]
                            for s in range(len(self.shards))]
+            # shards retired by a mid-job shrink reported at retirement:
+            # their stats and dup mismatches join the same sums
+            shard_stats += self.retired_shard_stats
             # clean completion: the journal has nothing left to recover
             if self._journal_enabled and os.path.exists(self._journal_path()):
                 os.unlink(self._journal_path())
@@ -1255,7 +1550,9 @@ class Supervisor:
                 seg.unlink()
             self._shm_segments.clear()
         wall = time.monotonic() - self._t_job0
-        bill = faas_cost(self.lifetimes, wall, n_redis=len(self.shards))
+        # one store VM per shard: the peak shard count under live
+        # re-sharding (a shard that ran for part of the job held its VM)
+        bill = faas_cost(self.lifetimes, wall, n_redis=self._max_brokers)
         return self._result(wall, bill, shard_stats)
 
     # -- results --------------------------------------------------------------
@@ -1295,8 +1592,14 @@ class Supervisor:
             "workload": self.wl.name,
             "device": str(self.wl.device),
             "n_workers": self.cfg.n_workers,
-            "n_brokers": len(self.shards),
-            "transport": self.cfg.transport,
+            # the final topology; 'topology_events' tell how it got there
+            "n_brokers": self.topology["n_brokers"],
+            "transport": self.topology["transport"],
+            "topology": dict(self.topology),
+            "topology_gen": self.topo_gen,
+            "topology_events": self.topology_events,
+            "topology_tuner": (None if self.topo_tuner is None
+                               else self.topo_tuner.summary()),
             "consistency": self.cfg.consistency,
             "slack": (self.cfg.slack if self.cfg.consistency == "ssp"
                       else None),

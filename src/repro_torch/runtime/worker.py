@@ -34,7 +34,11 @@ Per step t, on the job's device (``cuda`` unless the job says ``cpu``):
    the drained params at the sentinel step ``total_steps + 1``;
 6. on an eviction effective at t: publish ``x + residual`` and exit; on a
    flush from a leaving peer: mean-preserving reintegration, divided by
-   the pool just before the step it is delivered at.
+   the pool just before the step it is delivered at;
+7. at a topology fence (DESIGN.md §16, minted by the coordinator and
+   carried by every response): checkpoint step fence-1 and exit with
+   ``bye:topo-fence``; the supervisor re-shards the store and spawns the
+   next invocation into the new topology.
 
 Each step reports its phase times (fetch / compute / encode / wire /
 decode) and the kernel launches it made; the SSP drain's launches ride
@@ -94,15 +98,22 @@ def _make_rpc(conn, policy_fn):
 
 
 class _Membership:
-    """Worker-side view of the eviction table (worker -> effective step)."""
+    """Worker-side view of the eviction table (worker -> effective step)
+    and of the topology fence."""
 
     def __init__(self, n_workers: int):
         self.P = n_workers
         self.evictions: dict[int, int] = {}
+        # topology epoch fence (DESIGN.md §16): once the coordinator mints
+        # it, every worker exits at loop top t >= fence so the supervisor
+        # can re-shard the store between invocations
+        self.topo_fence: Optional[int] = None
 
     def update(self, resp: dict) -> None:
         for k, v in (resp.get("evictions") or {}).items():
             self.evictions[int(k)] = int(v)
+        if resp.get("topo_fence") is not None:
+            self.topo_fence = int(resp["topo_fence"])
 
     def p_active(self, step: int) -> int:
         return self.P - sum(1 for e in self.evictions.values() if e <= step)
@@ -466,6 +477,19 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
                 [parts for _, parts in per_shard],
             )
             bye("evicted")
+            return 0
+        # topology fence: exit before step fence so the supervisor can
+        # migrate the store. After the eviction check on purpose: a granted
+        # eviction step is always below the fence, so a leaver's flush
+        # still lands in a barrier the survivors complete before it. The
+        # fence-1 checkpoint is durable before the handover starts, so the
+        # respawned invocation (the new shard count and transport on its
+        # command line, the new chunking and partitioner in its hello's
+        # job) resumes at the fence and never replays a pre-fence step
+        # against the re-sharded store
+        if members.topo_fence is not None and t >= members.topo_fence:
+            save_ckpt(t - 1)
+            bye("topo-fence")
             return 0
         if t > total_steps:
             if consistency == "ssp" and t == total_steps + 1:

@@ -198,14 +198,12 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
 
 @pytest.mark.parametrize("kw", (
     {"argv": ["--jobs", "a,b"]},
-    {"argv": ["--retune", "4:n_brokers=2"]},
-    {"argv": ["--topology-tune"]},
 ))
 def test_unported_options_raise(tmp_path, monkeypatch, kw):
-    """What the port still refuses: the fleet, retune and topology-tune
-    flags of the CLI (SSP and shm are ported: tests/test_torch_ssp.py,
-    test_torch_shm.py; chaos, prewarm and hostperf: test_torch_chaos.py,
-    test_torch_prewarm.py)."""
+    """What the port still refuses: the fleet flag of the CLI (SSP and shm
+    are ported: tests/test_torch_ssp.py, test_torch_shm.py; chaos, prewarm
+    and hostperf: test_torch_chaos.py, test_torch_prewarm.py; retune and
+    topology-tune: test_torch_topology.py)."""
     from repro_torch.launch import train as train_cli
 
     monkeypatch.setattr(sys, "argv", [
