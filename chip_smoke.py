@@ -140,7 +140,20 @@ Phases (any failure exits non-zero; nothing is caught):
    counts on every worker, and the digest of ``pmf_bitmap``; beside it the
    tuning leg's job at a fixed topology (48 steps, one tcp shard, whole
    leaves), whose digest and per-step wire bytes the tuning leg's must
-   equal. Then the LM serving paths,
+   equal. Beside them, the fleet (``--jobs``, ``runtime/scheduler.py``):
+   ``fleet_pmf_lr`` packs the PMF-Nesterov and LR-Adam bitmap legs' jobs
+   (4 workers, 10 steps each; PMF 5 an invocation) on one pool of 4
+   slots over one tcp shard, one process a slot running a thread a job:
+   each job's digest must be its solo leg's, every PMF worker must count
+   exactly B1 20, B4 20 and B5 60 for its job (its thread's own count),
+   every LR worker B2, B4 and B5 and no B1, and the rollup's per-job
+   totals must sum to the pooled bill; ``fleet_pool_budget_shm`` runs the
+   same jobs over 2 shm shards under ``--pool-budget 6``: at least two
+   fair-share evictions, both jobs at step 10 with a survivor, every
+   worker's launches of its job's kernels, nothing left in /dev/shm
+   (evictions depend on timing: no digest); both without a dup mismatch,
+   each logged on a ``[fleet]`` line (the pooled bill, its rollup, the
+   invocations). Then the LM serving paths,
    ``python -m repro_torch.launch.serve --no-smoke`` at full width for
    phi4-mini-3.8b
    (B7 in its 32 attention layers) and xlstm-1.3b (B8 in its 6 sLSTM
@@ -997,8 +1010,10 @@ def _train_cmd(run_dir: str, job: dict, *, workers: int, steps: int,
                slack: int = 3, checkpoint_every: int = 100,
                chaos: str = None, prewarm: bool = False,
                hostperf: bool = False, retunes: tuple = (),
-               topology_tune: bool = False) -> list:
-    """The CLI a user runs."""
+               topology_tune: bool = False, jobs: str = None,
+               pool_budget: int = None) -> list:
+    """The CLI a user runs (``jobs``: a fleet's jobs file, whose fields
+    override the flags)."""
     out = os.path.join(run_dir, "result.json")
     return [sys.executable, "-m", "repro_torch.launch.train",
             "--runtime", "faas", "--workload", job["workload"],
@@ -1016,7 +1031,9 @@ def _train_cmd(run_dir: str, job: dict, *, workers: int, steps: int,
             *(["--prewarm"] if prewarm else []),
             *(["--hostperf"] if hostperf else []),
             *[a for r in retunes for a in ("--retune", r)],
-            *(["--topology-tune"] if topology_tune else [])]
+            *(["--topology-tune"] if topology_tune else []),
+            *(["--jobs", jobs] if jobs else []),
+            *(["--pool-budget", str(pool_budget)] if pool_budget else [])]
 
 
 def run_trains(jobs: list, timeout_s: float = 300.0,
@@ -1134,18 +1151,20 @@ def _leg_opts(**kw) -> dict:
                 **kw)
 
 
-def startup_split(run_dir: str) -> dict:
+def startup_split(run_dir: str, job: str = None) -> dict:
     """Mean seconds of each part of the workers' cold starts in a run (the
     ``startup`` line each worker invocation prints to its log: import,
     hello, workload with the CUDA context, a successor's warm-up and gate
-    wait, restore), with the invocations counted."""
+    wait, restore), with the invocations counted; in a fleet's run, the
+    lines of ``job``'s threads (``startup:<job>``)."""
     rows = []
     logdir = os.path.join(run_dir, "logs")
+    tag = "startup " if job is None else f"startup:{job} "
     for name in os.listdir(logdir):
         if name.startswith("w"):
             with open(os.path.join(logdir, name)) as f:
-                rows += [json.loads(line[len("startup "):]) for line in f
-                         if line.startswith("startup ")]
+                rows += [json.loads(line[len(tag):]) for line in f
+                         if line.startswith(tag)]
     parts = {k for r in rows for k in r}
     return {"invocations": len(rows), **{
         k: round(sum(r[k] for r in rows if k in r)
@@ -1199,6 +1218,8 @@ def main_path(tmp: str) -> dict:
             final_eval=res["final_eval"],
             wire_bytes_total=res["wire_bytes_total"],
             step_s_mean=res["measured_step_s"], wall_s=res["wall_s"],
+            worker_seconds=res["bill"]["worker_seconds"],
+            n_invocations=res["n_invocations"],
             sent_fraction_mean=sum(sent) / len(sent),
             phase_s_mean=json.dumps(res["phase_s_mean"]),
             steady=json.dumps(steady(res, opts["inv_steps"])),
@@ -1665,9 +1686,148 @@ def check_topology_pool(topo: list, results: dict, runs: dict,
     return retune_res
 
 
-def invariants(tmp: str, runs: dict, tune: tuple) -> dict:
-    """The invariant pool; returns the retune leg's result (its launches
-    join the kernels line)."""
+# the fleet (runtime/scheduler.py): the PMF-Nesterov and LR-Adam bitmap
+# legs packed on one pool of 4 slots, each slot's process running one
+# thread a job (job id -> the job's FaaSJobConfig fields; the CLI's flags
+# give the rest, as for the legs). PMF takes 5 steps an invocation, as its
+# leg does; its boundary ends the invocation for the LR thread too
+FLEET_JOBS = {
+    "pmf": {"workload": "pmf", "workload_cfg": ML10M,
+            "optimizer": "nesterov", "lr": 0.08, "invocation_steps": 5},
+    "lr": {"workload": "lr", "workload_cfg": CRITEO, "optimizer": "adam",
+           "lr": 0.01, "invocation_steps": 10},
+}
+FLEET_LEGS = {"pmf": ("pmf_bitmap", PMF), "lr": ("lr_bitmap", LR)}
+FLEET_MUST = {"pmf": tuple(PMF_LAUNCHES),
+              "lr": ("adam_sig_update", "wire_pack", "wire_unpack_add")}
+# the budgeted fleet: 8 (worker, job) pairs against 6, so the scheduler
+# evicts two fair-share (one from each job)
+FLEET_BUDGET = 6
+
+
+def fleet_runs(tmp: str) -> list:
+    """The two fleet runs of the invariant pool, as ``run_trains`` jobs:
+    ``fleet_pmf_lr`` (one tcp shard, no budget) and
+    ``fleet_pool_budget_shm`` (2 shm shards, pool budget 6)."""
+    jobs = os.path.join(tmp, "fleet_jobs.json")
+    with open(jobs, "w") as f:
+        json.dump({"jobs": FLEET_JOBS}, f)
+    return [(os.path.join(tmp, "fleet_pmf_lr"), PMF,
+             _leg_opts(jobs=jobs)),
+            (os.path.join(tmp, "fleet_pool_budget_shm"), PMF,
+             _leg_opts(jobs=jobs, n_brokers=2, transport="shm",
+                       pool_budget=FLEET_BUDGET))]
+
+
+def _fleet_log(label: str, d: str, res: dict) -> None:
+    """The ``[fleet]`` line: the pooled bill, its rollup, the invocations,
+    each job's launches and cold starts."""
+    log("fleet", run=label, wall_s=res["wall_s"],
+        n_invocations=res["n_invocations"], n_respawns=res["n_respawns"],
+        bill=json.dumps(res["bill"]),
+        rollup=json.dumps({j: {k: r[k] for k in ("busy_s", "share",
+                                                 "total")}
+                           for j, r in res["rollup"]["per_job"].items()}),
+        rollup_total=res["rollup"]["total"],
+        steps=json.dumps({j: r["steps"] for j, r in res["jobs"].items()}),
+        final_pool=json.dumps({j: r["final_pool"]
+                               for j, r in res["jobs"].items()}),
+        final_eval=json.dumps({j: r["final_eval"]
+                               for j, r in res["jobs"].items()}),
+        step_s_mean=json.dumps({j: r["measured_step_s"]
+                                for j, r in res["jobs"].items()}),
+        # each step's mean seconds, mean compute and slowest worker: a
+        # job's invocations end where PMF's boundary caught it, and a
+        # respawned job's first compute (its kernels' loads) holds the
+        # lock its sibling waits on
+        steps_s=json.dumps({j: [
+            [row["step"], round(row["dur_s"], 5),
+             round(row["phase"]["compute"], 5),
+             round(max(row["dur_s_by_worker"].values()), 5)]
+            for row in r["history"]] for j, r in res["jobs"].items()}),
+        scale_events=json.dumps({j: r["scale_events"]
+                                 for j, r in res["jobs"].items()}),
+        launches=json.dumps({j: r["kernel_launches_by_worker"]
+                             for j, r in res["jobs"].items()}),
+        startup=json.dumps({j: startup_split(d, j) for j in res["jobs"]}),
+        dup_mismatches=res["dup_mismatches"],
+        shm_left=len(left_in_dev_shm(res)))
+
+
+def check_fleet(fleet: list, results: dict, runs: dict) -> dict:
+    """The fleet runs of the invariant pool. ``fleet_pmf_lr``: each job's
+    digest is its solo leg's, every PMF worker launches exactly
+    ``PMF_LAUNCHES`` for its job and every LR worker B2, B4 and B5 and no
+    B1, the rollup's per-job totals sum to the pooled total.
+    ``fleet_pool_budget_shm``: at least two fair-share evictions, both jobs
+    at step 10 with a survivor, every worker's launches of its job's
+    kernels (evictions depend on timing: no digest). Both: no dup
+    mismatch, nothing left in /dev/shm. Returns both results."""
+    out = {}
+    for d, _, kw in fleet:
+        label = os.path.basename(d)
+        res = results[d]
+        _fleet_log(label, d, res)
+        require(res["dup_mismatches"] == 0, f"{label}: dup mismatches")
+        require(left_in_dev_shm(res) == [],
+                f"{label}: segments left in /dev/shm")
+        total = sum(r["total"] for r in res["rollup"]["per_job"].values())
+        require(math.isclose(total, res["rollup"]["total"], rel_tol=1e-12)
+                and res["rollup"]["total"] == res["bill"]["total"],
+                f"{label}: the rollup's jobs sum to {total}, not the pooled "
+                f"{res['rollup']['total']}")
+        require(sorted(res["jobs"]) == sorted(FLEET_JOBS),
+                f"{label}: jobs {sorted(res['jobs'])}")
+        for jid, job in res["jobs"].items():
+            launches = job["kernel_launches_by_worker"]
+            require(job["steps"] == 10, f"{label} {jid}: steps "
+                    f"{job['steps']}")
+            require(sorted(launches) == ["0", "1", "2", "3"],
+                    f"{label} {jid}: launch telemetry from workers "
+                    f"{sorted(launches)}")
+            for w, counts in launches.items():
+                for name in FLEET_MUST[jid]:
+                    require(counts.get(name, 0) > 0, f"{label} {jid}: "
+                            f"{name} launched 0 times on worker {w}")
+                if jid == "lr":
+                    require(counts.get("significance_filter", 0) == 0,
+                            f"{label}: B1 counted for the LR job on "
+                            f"worker {w}")
+            require(job["final_eval"] is not None
+                    and math.isfinite(job["final_eval"]),
+                    f"{label} {jid}: final eval {job['final_eval']}")
+        if kw.get("pool_budget"):
+            fair = [e for j in res["jobs"].values()
+                    for e in j["scale_events"] if e["reason"] == "fair-share"]
+            require(len(fair) >= 2, f"{label}: {len(fair)} fair-share "
+                    "evictions")
+            for jid, job in res["jobs"].items():
+                require(job["final_pool"] >= 1,
+                        f"{label} {jid}: final pool {job['final_pool']}")
+        else:
+            for jid, job in res["jobs"].items():
+                leg, spec = FLEET_LEGS[jid]
+                dig = digest(os.path.join(d, "jobs", jid), spec)
+                dig_solo = digest(runs[leg][0], spec)
+                log("invariant", workload=jid, against=leg, run=label,
+                    digest_equal=dig == dig_solo,
+                    final_pool=job["final_pool"])
+                require(dig == dig_solo, f"{label} {jid}: digest differs "
+                        f"from {leg}")
+                require(job["final_pool"] == 4,
+                        f"{label} {jid}: final pool {job['final_pool']}")
+            for w, counts in res["jobs"]["pmf"][
+                    "kernel_launches_by_worker"].items():
+                got = {k: counts.get(k, 0) for k in PMF_LAUNCHES}
+                require(got == PMF_LAUNCHES, f"{label}: PMF worker {w} "
+                        f"launched {got}, not {PMF_LAUNCHES}")
+        out[label] = res
+    return out
+
+
+def invariants(tmp: str, runs: dict, tune: tuple) -> tuple:
+    """The invariant pool; returns the retune leg's result and the fleet
+    runs' (their launches join the kernels line)."""
     import torch
 
     checks = {"pmf": (PMF, "pmf_bitmap"), "lr": (LR, "lr_bitmap")}
@@ -1744,12 +1904,14 @@ def invariants(tmp: str, runs: dict, tune: tuple) -> dict:
     # results are keyed by run directory
     solo = batches["pmf"][1]  # labels[1], the rerun
     rest = [j for jobs in batches.values() for j in jobs if j is not solo]
-    pool = topo + [j for j in rest if j[2].get("prewarm")] + [
+    fleet = fleet_runs(tmp)
+    pool = topo + fleet + [j for j in rest if j[2].get("prewarm")] + [
         j for j in rest if not j[2].get("prewarm")]
     results = dict(zip([solo[0]], run_trains([solo])))
     results.update(zip([d for d, _, _ in pool], run_trains(
         pool, timeout_s=800.0, stagger_s=2.0, max_parallel=5)))
     retune_res = check_topology_pool(topo, results, runs, tune)
+    fleets = check_fleet(fleet, results, runs)
     for name, (job, leg) in checks.items():
         jobs = batches[name]
         by_job = [results[d] for d, _, _ in jobs]
@@ -1833,7 +1995,7 @@ def invariants(tmp: str, runs: dict, tune: tuple) -> dict:
             require(all(by_job[3]["kernel_launches_by_worker"][w].get(
                 "adam_sig_update", 0) > 0 for w in ("0", "1")),
                 "lr-small: B2 not launched on the card")
-    return retune_res
+    return retune_res, fleets
 
 
 # -- phase 4c: the in-process isp-pod trainer --------------------------------
@@ -3371,7 +3533,7 @@ def main() -> int:
         pods = pod_paths(tmp)
         flats = flat_paths(tmp)
         done("in-process legs")
-        retune = invariants(tmp, runs, tune)
+        retune, fleets = invariants(tmp, runs, tune)
         done("invariants")
         served = serve_paths(tmp)
         done("serving")
@@ -3390,14 +3552,17 @@ def main() -> int:
     profile_step(dev, steady(runs["pmf_bitmap"][1], 5)["step_s"])
     done("times")
 
-    # launches: every main-path leg, the chaos leg, both topology legs and
-    # every serving run, each counted from 0 in fresh processes, and the
-    # simulator's jobs, each from 0
+    # launches: every main-path leg, the chaos leg, both topology legs,
+    # every job of both fleet runs and every serving run, each counted from
+    # 0 in fresh processes, and the simulator's jobs, each from 0
     launches = {k: 0 for k in KERNELS}
     counted = [c for _, res in runs.values()
                for c in res["kernel_launches_by_worker"].values()]
     for res in (chaos, tune[1], retune):
         counted += list(res["kernel_launches_by_worker"].values())
+    for res in fleets.values():
+        counted += [c for job in res["jobs"].values()
+                    for c in job["kernel_launches_by_worker"].values()]
     counted += [res["kernel_launches"] for res in served.values()]
     counted += [pods[label]["kernel_launches"] for label, _ in POD_LEGS]
     counted += [res["kernel_launches"] for res in flats.values()]

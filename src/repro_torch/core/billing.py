@@ -66,6 +66,39 @@ def faas_cost(lifetimes_s: Sequence[float], wall_s: float, n_redis: int = 1) -> 
     )
 
 
+def multi_job_rollup(
+    lifetimes_s: Sequence[float],
+    wall_s: float,
+    n_redis: int,
+    busy_s_by_job: dict,
+) -> dict:
+    """Attribute one bin-packed fleet's bill to its jobs (DESIGN.md §14.4).
+
+    The fleet pays ONE pooled bill: the quantum-rounded invocation
+    lifetimes plus the shared store VMs, billed once on the fleet's wall
+    clock. Each job is charged its share by measured busy seconds (the sum
+    over its telemetry rows of ``dur_s * p_active``: the worker-seconds
+    the job occupied). Returns ``{"bill": FaaSBill, "per_job": {job:
+    {busy_s, share, worker_cost, infra_cost, total}}}``; the per-job
+    totals sum to the pooled total (shares are normalised over the busy
+    seconds; an all-idle fleet splits evenly).
+    """
+    bill = faas_cost(lifetimes_s, wall_s, n_redis=n_redis)
+    busy = {j: max(float(b), 0.0) for j, b in busy_s_by_job.items()}
+    denom = sum(busy.values())
+    per_job = {}
+    for j, b in busy.items():
+        share = (b / denom) if denom > 0 else 1.0 / max(len(busy), 1)
+        per_job[j] = {
+            "busy_s": b,
+            "share": share,
+            "worker_cost": share * bill.worker_cost,
+            "infra_cost": share * bill.infra_cost,
+            "total": share * bill.total,
+        }
+    return {"bill": bill, "per_job": per_job}
+
+
 def iaas_cost(n_workers: int, wall_s: float) -> float:
     """PyTorch-cluster cost: workers come in VMs of four, billed per second
     (the paper's 'conservative' pro-rating), all alive for the whole job."""

@@ -48,3 +48,9 @@ class TokenPipeline:
             bi = succ[prev, succ_pick[:, t]]
             toks[:, t + 1] = np.where(use_bigram[:, t], bi, iid[:, t])
         return {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+
+
+def synthetic_token_batch(vocab_size: int, seq_len: int, global_batch: int,
+                          seed: int = 0) -> dict[str, np.ndarray]:
+    """The pipeline's first batch (``{"tokens", "labels"}``, int32)."""
+    return TokenPipeline(vocab_size, seq_len, global_batch, seed).next_batch(0)

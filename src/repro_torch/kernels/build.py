@@ -7,9 +7,11 @@ builds anew and an unchanged one is reused. Builds run under a file lock,
 so the worker processes of one job never compile at once, and all sources
 start compiling together.
 
-``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
-card; nothing else adds to it. Launches are counted per process, so a
-worker reports its own.
+``count`` is called by a wrapper where it launches its kernel, and nowhere
+else. It adds one to ``LAUNCHES``, the process's count per kernel, and one
+to the calling thread's own count (``thread_launches``): a worker process
+of the multi-job fleet runs one thread a job, and each job reports only
+the launches its own thread made.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -37,6 +40,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
@@ -65,8 +70,27 @@ _ARGTYPES = {
 }
 
 
+def thread_launches() -> collections.Counter:
+    """The launches the calling thread made, per kernel."""
+    counts = getattr(_THREAD, "launches", None)
+    if counts is None:
+        counts = _THREAD.launches = collections.Counter()
+    return counts
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``, in the process's and the calling
+    thread's counts."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+    thread_launches()[name] += 1
+
+
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    """Clear the process's counts and the calling thread's."""
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
+    thread_launches().clear()
 
 
 def nvcc() -> str:

@@ -79,7 +79,7 @@ def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
             0 if window is None else int(window), int(q_offset),
             float(np.float32(1.0) / np.sqrt(np.float32(dh))),  # true Dh
             build.stream_ptr(q.device)), NAME)
-        build.LAUNCHES[NAME] += 1
+        build.count(NAME)
     return o
 
 

@@ -77,7 +77,7 @@ def adam_update(
             p_out.data_ptr(), mu_out.data_ptr(), nu_out.data_ptr(), n,
             CODES[p.dtype], CODES[mu.dtype], _block(s),
             build.stream_ptr(p.device)), NAME)
-        build.LAUNCHES[NAME] += 1
+        build.count(NAME)
     return p_out, mu_out, nu_out
 
 
@@ -111,5 +111,5 @@ def adam_sig_update(
             r.data_ptr(), *(o.data_ptr() for o in outs), n, CODES[p.dtype],
             CODES[mu.dtype], CODES[r.dtype], _block(s), fl,
             build.stream_ptr(p.device)), SIG_NAME)
-        build.LAUNCHES[SIG_NAME] += 1
+        build.count(SIG_NAME)
     return outs

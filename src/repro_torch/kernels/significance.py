@@ -61,5 +61,5 @@ def significance_filter(
             u.data_ptr(), x.data_ptr(), r.data_ptr(), sig.data_ptr(),
             res.data_ptr(), x.numel(), pods, CODES[u.dtype], vt, fl,
             build.stream_ptr(u.device)), NAME)
-        build.LAUNCHES[NAME] += 1
+        build.count(NAME)
     return sig, res

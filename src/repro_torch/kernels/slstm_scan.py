@@ -145,7 +145,7 @@ def _launch(xg, r, state, p: Plan):
         hs.data_ptr(), *(t.data_ptr() for t in final), b, s, four_d // 4,
         r.shape[0], int(r.dtype == torch.bfloat16), *_entry_args(p),
         build.stream_ptr(xg.device)), NAME)
-    build.LAUNCHES[NAME] += 1
+    build.count(NAME)
     return hs, final
 
 

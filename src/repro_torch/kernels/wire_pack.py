@@ -124,7 +124,7 @@ def wire_pack(flat: torch.Tensor, vdt: torch.dtype):
         qdense.data_ptr(), cvals.data_ptr(), cidx.data_ptr(),
         residual.data_ptr(), nnz.data_ptr(), words.data_ptr(), seq,
         stream), PACK)
-    build.LAUNCHES[PACK] += 1
+    build.count(PACK)
     return mask, qdense, cvals, cidx, nnz, residual
 
 
@@ -146,7 +146,7 @@ def _unpack(target, mask_bytes, cvals, n, dtype, accumulate):
         mask_bytes.data_ptr(), n, cvals.data_ptr(), cvals.numel(),
         CODES[cvals.dtype], out.data_ptr(), int(accumulate),
         words.data_ptr(), seq, stream), UNPACK_ADD)
-    build.LAUNCHES[UNPACK_ADD] += 1
+    build.count(UNPACK_ADD)
     return out
 
 
@@ -217,5 +217,5 @@ def wire_nnz(flat: torch.Tensor) -> torch.Tensor:
         build.check(lib.wire_nnz_launch(
             flat.data_ptr(), CODES[flat.dtype], flat.numel(), out.data_ptr(),
             build.stream_ptr(flat.device)), NNZ)
-        build.LAUNCHES[NNZ] += 1
+        build.count(NNZ)
     return out

@@ -52,10 +52,13 @@ Two runtimes, as in the JAX package:
   ``--topology-tune`` lets the online co-tuner pick the shard count and
   transport (DESIGN.md §16); both chunk the leaves at 64 KiB over the
   consistent-hash ring unless ``--shard-split-bytes`` says otherwise.
+  ``--jobs jobs.json [--pool-budget N]`` runs several jobs at once on one
+  shared pool (``runtime/scheduler.py``): the file maps job ids to
+  ``FaaSJobConfig`` fields, the flags give every job's defaults.
 
 Both run on ``--device`` (default ``cuda``; ``cpu`` only when asked for)
-and print their result as JSON. The JAX driver's fleet scheduling
-(``--jobs``) is not yet ported and raises.
+and print their result as JSON. ``RUNTIMES`` maps each ``--runtime`` name
+to its function; ``register_runtime`` adds one.
 """
 
 from __future__ import annotations
@@ -525,13 +528,117 @@ def _topology_args(args) -> dict:
             "partitioner": partitioner, "shard_split_bytes": split}
 
 
+# -- runtime registry ---------------------------------------------------------
+#
+# A runtime is a whole execution substrate: it takes the parsed arguments
+# and returns the result dict. ``inproc`` is the in-process trainer above,
+# ``faas`` the multi-process serverless runtime.
+
+RUNTIMES: dict[str, Any] = {}
+
+
+def register_runtime(name: str):
+    def deco(fn):
+        RUNTIMES[name] = fn
+        return fn
+
+    return deco
+
+
+register_runtime("inproc")(train)
+
+
+def _fleet_faas(args, run_dir: str) -> dict:
+    """--jobs: N concurrent jobs on ONE shared pool (runtime.scheduler).
+
+    The jobs file maps job id -> FaaSJobConfig field overrides (optionally
+    under a top-level "jobs" key, with "pool_budget" beside it)::
+
+        {"pool_budget": 4,
+         "jobs": {"pmf0": {"workload": "pmf", "n_workers": 3,
+                           "total_steps": 60},
+                  "lr0": {"workload": "lr", "n_workers": 2,
+                          "total_steps": 40, "consistency": "ssp"}}}
+
+    The CLI flags are every job's defaults, a job's own fields win. The
+    jobs must agree on the pool's topology (they share its processes).
+    """
+    from repro_torch.runtime.scheduler import FleetConfig, run_fleet
+    from repro_torch.runtime.supervisor import FaaSJobConfig
+
+    with open(args.jobs) as f:
+        doc = json.load(f)
+    specs = doc.get("jobs", doc) if isinstance(doc, dict) else None
+    if not isinstance(specs, dict) or not specs:
+        raise SystemExit(f"--jobs {args.jobs}: expected a job-id mapping")
+    pool_budget = args.pool_budget
+    if pool_budget is None and isinstance(doc, dict):
+        pool_budget = doc.get("pool_budget")
+    topo = _topology_args(args)
+    if topo["scripted_retunes"]:
+        raise SystemExit(
+            "--retune is not supported with --jobs: the fleet's broker "
+            "pool is shared, so no job may re-shard it live")
+    fields = {f.name for f in dataclasses.fields(FaaSJobConfig)}
+    jobs = {}
+    for jid, spec in specs.items():
+        unknown = set(spec) - fields
+        if unknown:
+            raise SystemExit(
+                f"--jobs job {jid!r}: unknown fields {sorted(unknown)}")
+        base = dict(
+            run_dir=os.path.join(run_dir, "jobs", str(jid)),
+            workload=args.workload,
+            workload_cfg=json.loads(args.workload_cfg) if args.workload_cfg
+            else {},
+            device=args.device,
+            n_workers=args.workers,
+            total_steps=args.steps,
+            invocation_steps=args.invocation_steps,
+            checkpoint_every=args.checkpoint_every,
+            optimizer=args.optimizer,
+            lr=args.lr,
+            isp_v=args.isp_v,
+            wire_scheme=args.wire_scheme,
+            wire_quant=args.wire_quant,
+            wire_impl=args.wire_impl,
+            n_brokers=args.n_brokers,
+            transport=args.transport,
+            consistency=args.consistency,
+            slack=args.slack,
+            autotune=args.autotune,
+            tuner=AutoTunerConfig(
+                sched_interval_s=args.sched_interval,
+                delta_s=args.sched_interval / 2,
+            ),
+            # observe-only under the fleet: the layout the user asked for
+            # (no ring or chunk default: the pool never re-shards)
+            topology_tune=topo["topology_tune"],
+            shard_split_bytes=int(args.shard_split_bytes or 0),
+            seed=args.seed,
+        )
+        base.update(spec)
+        jobs[str(jid)] = FaaSJobConfig(**base)
+    fleet = FleetConfig(run_dir=run_dir, jobs=jobs, pool_budget=pool_budget)
+    return run_fleet(fleet)
+
+
+@register_runtime("faas")
 def train_faas(args) -> dict:
-    """Run the job on the multi-process FaaS runtime."""
+    """Run the job, or with ``--jobs`` the fleet, on the multi-process FaaS
+    runtime."""
     from repro_torch.runtime.faults import parse_chaos_arg, run_job_resilient
     from repro_torch.runtime.supervisor import FaaSJobConfig, run_job
 
     if args.jobs:
-        raise NotImplementedError("--jobs: not yet ported")
+        if args.chaos:
+            raise SystemExit(
+                "--chaos is not supported with --jobs: a fault plan "
+                "SIGKILLs pool processes shared by every tenant")
+        if args.prewarm:
+            raise SystemExit(
+                "--prewarm is not supported with --jobs: a fleet slot "
+                "already overlaps its jobs' starts")
     topo = _topology_args(args)
     chaos = None
     if args.chaos:
@@ -541,6 +648,8 @@ def train_faas(args) -> dict:
     device_lib.resolve(args.device)  # no CUDA -> raise before spawning
     run_dir = args.run_dir or args.checkpoint_dir or tempfile.mkdtemp(
         prefix="repro_torch_faas_")
+    if args.jobs:
+        return _write_out(args, _fleet_faas(args, run_dir))
     cfg = FaaSJobConfig(
         run_dir=run_dir,
         workload=args.workload,
@@ -579,14 +688,16 @@ def train_faas(args) -> dict:
         result = run_job_resilient(cfg)
     else:
         result = run_job(cfg)
+    return _write_out(args, result)
+
+
+def _write_out(args, result: dict) -> dict:
+    """Write a FaaS result to ``--out`` when given; returns it."""
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1, default=str)
     return result
-
-
-RUNTIMES = {"inproc": train, "faas": train_faas}
 
 
 def main() -> None:
@@ -677,11 +788,19 @@ def main() -> None:
     ap.add_argument("--hostperf", action="store_true",
                     help="faas: spawn workers under the tuned host env "
                     "(launch/hostperf.py)")
-    # a JAX-driver option that is not yet ported: accepted, then refused
-    ap.add_argument("--jobs", default=None)
+    ap.add_argument("--jobs", default=None,
+                    help="faas: JSON file of N jobs to run at once on one "
+                    "shared broker and worker pool (runtime.scheduler); "
+                    "maps job id -> FaaSJobConfig fields")
+    ap.add_argument("--pool-budget", type=int, default=None,
+                    help="faas --jobs: the most active (worker, job) pairs "
+                    "at once; beyond it the scheduler evicts fair-share")
     args = ap.parse_args()
     res = RUNTIMES[args.runtime](args)
-    slim = {k: v for k, v in res.items() if k != "history"}
+    slim = {k: v for k, v in res.items() if k not in ("history", "updates")}
+    if isinstance(slim.get("jobs"), dict):  # the fleet: per-job histories
+        slim["jobs"] = {j: {k: v for k, v in r.items() if k != "history"}
+                        for j, r in slim["jobs"].items()}
     print(json.dumps(slim, indent=1, default=str))
 
 

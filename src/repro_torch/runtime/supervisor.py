@@ -44,7 +44,9 @@ with a durable checkpoint (``bye:topo-fence``), the supervisor migrates the
 moved chunks through the shards' WALs, commits the new topology on every
 shard and respawns the workers into it. The online co-tuner
 (``core.autotuner.TopologyTuner``) measures each neighbouring cell and
-commits to the fastest. Not yet ported from the JAX supervisor: the fleet.
+commits to the fastest. Several jobs on one shared pool are the fleet
+scheduler's (``runtime/scheduler.py``), which reuses this module's
+``FaaSJobConfig``.
 
 State machine per worker slot::
 
@@ -93,9 +95,6 @@ from repro_torch.wire import codec as wire_codec
 
 PyTree = Any
 
-# per-direction ring capacity of each worker<->shard shm segment
-SHM_RING_BYTES = 4 << 20
-
 # the knobs a live re-shard may change
 TOPOLOGY_KNOBS = ("n_brokers", "transport", "wire_scheme",
                   "shard_split_bytes", "partitioner")
@@ -143,6 +142,8 @@ class FaaSJobConfig:
     # segments (same framing, codec and accounted bytes); the
     # supervisor's own control plane always rides TCP
     transport: str = "tcp"
+    # per-direction ring capacity of each worker<->shard shm segment
+    shm_ring_bytes: int = 4 << 20
     # split leaves denser than this many bytes into flat chunks before
     # shard assignment (0 = whole leaves); 'partitioner' places the keys:
     # 'greedy' (least-loaded) or 'ring' (consistent hashing: a re-shard
@@ -175,6 +176,9 @@ class FaaSJobConfig:
     # above compile into the same plan
     chaos: Optional[dict] = None
     rpc: Optional[dict] = None
+    # keep every published update: the result's 'updates' holds each
+    # (worker, step)'s merged tree, read back from the shards at the end
+    retain_updates: bool = False
     poll_interval_s: float = 0.05
     deadline_s: float = 600.0
     pull_deadline_s: float = 120.0
@@ -261,6 +265,35 @@ class FaaSJobConfig:
         if self.rpc is not None:
             d["rpc"] = dict(self.rpc)
         return d
+
+
+def base_env() -> dict:
+    """This environment with the port's ``src`` on ``PYTHONPATH``: what a
+    broker shard is spawned under."""
+    import repro_torch
+
+    src = os.path.dirname(os.path.dirname(
+        os.path.abspath(repro_torch.__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def worker_env(hostperf: bool = False) -> dict:
+    """What a worker invocation is spawned under: ``base_env`` with the
+    host math threads capped (``launch/hostperf.py``'s tuned env under
+    ``hostperf``)."""
+    env = base_env()
+    if hostperf:
+        from repro_torch.launch import hostperf as hostperf_lib
+
+        return hostperf_lib.build_env(env, threads=1)
+    # each worker is the paper's 1 vCPU function: cap host math threads
+    env.setdefault("OMP_NUM_THREADS", "1")
+    env.setdefault("OPENBLAS_NUM_THREADS", "1")
+    # deterministic cuBLAS workspaces (torch.use_deterministic_algorithms)
+    env.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    return env
 
 
 def _pid_alive(pid: Optional[int]) -> bool:
@@ -478,7 +511,8 @@ class Supervisor:
         if cfg.hostperf:
             from repro_torch.launch import hostperf
 
-            self.hostperf_applied = hostperf.describe(self._worker_env())
+            self.hostperf_applied = hostperf.describe(
+                worker_env(cfg.hostperf))
         self.tuner: Optional[ScaleInAutoTuner] = None
         if cfg.autotune:
             self.tuner = ScaleInAutoTuner(cfg.tuner or AutoTunerConfig(),
@@ -509,28 +543,6 @@ class Supervisor:
 
     # -- process management ---------------------------------------------------
 
-    def _base_env(self) -> dict:
-        import repro_torch
-
-        src = os.path.dirname(os.path.dirname(
-            os.path.abspath(repro_torch.__file__)))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-        return env
-
-    def _worker_env(self) -> dict:
-        env = self._base_env()
-        if self.cfg.hostperf:
-            from repro_torch.launch import hostperf
-
-            return hostperf.build_env(env, threads=1)
-        # each worker is the paper's 1 vCPU function: cap host math threads
-        env.setdefault("OMP_NUM_THREADS", "1")
-        env.setdefault("OPENBLAS_NUM_THREADS", "1")
-        # deterministic cuBLAS workspaces (torch.use_deterministic_algorithms)
-        env.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-        return env
-
     def _broker_dir(self) -> str:
         return os.path.join(self.cfg.run_dir, "broker")
 
@@ -560,7 +572,7 @@ class Supervisor:
                  "--port", str(bs.addr[1] if bs.addr else 0),
                  "--wal", wal_path,
                  "--port-file", port_file],
-                stdout=log, stderr=subprocess.STDOUT, env=self._base_env(),
+                stdout=log, stderr=subprocess.STDOUT, env=base_env(),
             )
         bs.spawns += 1
         deadline = time.monotonic() + self.cfg.broker_spawn_timeout_s
@@ -639,7 +651,7 @@ class Supervisor:
         names = [f"{base}s{s}" for s in range(len(self.shards))]
         for name in names:
             self._shm_segments[name] = shm.Segment.create(
-                name, ring_bytes=SHM_RING_BYTES)
+                name, ring_bytes=self.cfg.shm_ring_bytes)
         for s, name in enumerate(names):
             resp, _ = self._rpc({"t": "shm_serve", "seg": name}, shard=s)
             if not resp.get("ok"):
@@ -692,7 +704,7 @@ class Supervisor:
         os.makedirs(logdir, exist_ok=True)
         with open(os.path.join(logdir, log_name), "wb") as log:
             return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                    env=self._worker_env())
+                                    env=worker_env(self.cfg.hostperf))
 
     def _spawn(self, slot: _Slot) -> None:
         base = (self._setup_worker_shm(slot)
@@ -1512,6 +1524,7 @@ class Supervisor:
                 p["rec"]["recovery_s"] = None
                 self.chaos_events.append(p["rec"])
             self._chaos_pending = []
+            dump = self._dump_updates() if cfg.retain_updates else None
             self._stopping = True
             shard_stats = [self._rpc({"t": "shutdown"}, shard=s)[0]
                            for s in range(len(self.shards))]
@@ -1553,9 +1566,38 @@ class Supervisor:
         # one store VM per shard: the peak shard count under live
         # re-sharding (a shard that ran for part of the job held its VM)
         bill = faas_cost(self.lifetimes, wall, n_redis=self._max_brokers)
-        return self._result(wall, bill, shard_stats)
+        return self._result(wall, bill, shard_stats, dump)
 
     # -- results --------------------------------------------------------------
+
+    def _dump_updates(self) -> list[dict]:
+        """Every stored update, merged across the shards back into one
+        tree a (worker, step), as CPU tensors in step then worker order
+        (``sharding.LeafBuffers`` reassembles chunked leaves too)."""
+        from repro_torch import tree as tree_lib
+        from repro_torch.runtime import sharding
+
+        params0 = self.wl.params0
+        leaf_keys = protocol.tree_keys(params0)
+        leaf_like = {k: (tuple(leaf.shape), leaf.dtype) for k, leaf in
+                     zip(leaf_keys, tree_lib.leaves(params0))}
+        acc: dict[tuple[int, int], sharding.LeafBuffers] = {}
+        for s in range(len(self.shards)):
+            resp, blob = self._rpc({"t": "dump"}, shard=s)
+            for desc, m, leaf in sharding.iter_part_leaves(
+                    resp["parts"], blob):
+                key = (int(desc["worker"]), int(desc["step"]))
+                if key not in acc:  # setdefault would zero-fill per leaf
+                    acc[key] = sharding.LeafBuffers(leaf_like)
+                acc[key].add(m, leaf)
+        out = []
+        for worker, step in sorted(acc):
+            bufs = acc[(worker, step)]
+            bufs.assert_complete(what=f"dump (worker {worker}, step {step})")
+            out.append({"worker": worker, "step": step,
+                        "update": tree_lib.unflatten(
+                            params0, [bufs[k] for k in leaf_keys])})
+        return out
 
     def _final_eval(self) -> tuple[Optional[float], Optional[int]]:
         survivors = [s.worker for s in self.slots if s.terminal == "done"]
@@ -1564,7 +1606,8 @@ class Supervisor:
         tree, step = final_params(self.cfg, min(survivors), self.wl)
         return self.wl.eval_fn(tree), step
 
-    def _result(self, wall, bill: FaaSBill, shard_stats) -> dict:
+    def _result(self, wall, bill: FaaSBill, shard_stats,
+                dump: Optional[list] = None) -> dict:
         final_eval, final_ckpt_step = self._final_eval()
         hist = self.history
         durs = [r["dur_s"] for r in hist if r.get("dur_s")]
@@ -1588,7 +1631,7 @@ class Supervisor:
                     kind, {"count": 0, "bytes_in": 0, "bytes_out": 0})
                 for k in agg:
                     agg[k] += row.get(k, 0)
-        return {
+        result = {
             "workload": self.wl.name,
             "device": str(self.wl.device),
             "n_workers": self.cfg.n_workers,
@@ -1657,6 +1700,9 @@ class Supervisor:
             "broker_update_bytes_per_shard": [
                 int(r.get("update_bytes", 0)) for r in shard_stats],
         }
+        if dump is not None:
+            result["updates"] = dump
+        return result
 
 
 def run_job(cfg: FaaSJobConfig) -> dict:
@@ -1699,6 +1745,56 @@ def final_params_digest(cfg: FaaSJobConfig, worker: int = 0) -> str:
     for leaf in tree_lib.leaves(params):
         h.update(np.ascontiguousarray(wire_codec.to_numpy(leaf)).tobytes())
     return h.hexdigest()
+
+
+# the canonical quickstart job: examples/mlless_faas_torch.py runs it
+PMF_QUICKSTART_CFG = {
+    "n_users": 200,
+    "n_movies": 300,
+    "n_ratings": 12_000,
+    "rank": 8,
+    "batch_size": 512,
+}
+
+
+def pmf_quickstart_config(
+    run_dir: str, n_workers: int = 4, total_steps: int = 140,
+    n_brokers: int = 1, transport: str = "tcp",
+    consistency: str = "isp", slack: int = 3,
+    wire_impl: str = "cuda", hostperf: bool = False,
+    device: str = "cuda",
+) -> FaaSJobConfig:
+    """PMF on 4 workers with a live knee-driven scale-in (~1 min)."""
+    return FaaSJobConfig(
+        run_dir=run_dir,
+        workload="pmf",
+        workload_cfg=dict(PMF_QUICKSTART_CFG),
+        device=device,
+        n_workers=n_workers,
+        total_steps=total_steps,
+        invocation_steps=max(total_steps // 2, 1),  # >= 2 invocations
+        checkpoint_every=20,
+        optimizer="nesterov",
+        # stale peer corrections shrink the stable step size: Nesterov at
+        # 0.3 diverges under slack near the optimum, 0.05 converges
+        # through the whole slack range the CLI exposes
+        lr=0.3 if consistency == "isp" else 0.05,
+        isp_v=0.7,
+        n_brokers=n_brokers,
+        transport=transport,
+        consistency=consistency,
+        slack=slack,
+        wire_impl=wire_impl,
+        hostperf=hostperf,
+        autotune=True,
+        tuner=AutoTunerConfig(
+            sched_interval_s=0.5,
+            delta_s=0.25,
+            knee_slope_threshold=0.3,
+            min_points_for_fit=8,
+        ),
+        deadline_s=480.0,
+    )
 
 
 def main() -> None:
@@ -1745,7 +1841,8 @@ def main() -> None:
         )
     res = Supervisor(cfg, allow_self_kill=args.allow_self_kill,
                      resume=args.resume).run()
-    print(json.dumps({k: v for k, v in res.items() if k != "history"},
+    print(json.dumps({k: v for k, v in res.items()
+                      if k not in ("history", "updates")},
                      indent=1, default=str))
     if args.out:
         with open(args.out, "w") as f:

@@ -59,6 +59,15 @@ the launch counters, writes ``GATE.ready`` and holds until the
 supervisor creates ``GATE``. Only then does it say hello for real,
 restore the newest checkpoint and train.
 
+Under the multi-job fleet (``runtime/scheduler.py``, DESIGN.md §14) one
+process runs one ``run_worker`` thread per hosted job
+(``run_worker_fleet``, ``--jobs A,B``): every RPC carries the job's id and
+every leaf key its namespace, one lock serialises the jobs' compute
+phases, and the first thread to reach its invocation budget ends the
+invocation for all of them. On the card each job thread runs on a CUDA
+stream of its own, so a job waits only for its own work, and counts only
+its own kernel launches (``kernels.build.thread_launches``).
+
 Exit codes: 0 clean (done / evicted / invocation boundary), 3 broker
 abort, 4 broker unreachable, 5 barrier deadline exceeded.
 """
@@ -66,9 +75,11 @@ abort, 4 broker unreachable, 5 barrier deadline exceeded.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import errno
 import json
 import os
+import threading
 import time
 from typing import Any, Optional
 
@@ -151,10 +162,21 @@ def save_checkpoint(ckpt_dir: str, step: int, state: dict, worker_id: int,
 
 def run_worker(addrs: list[tuple[str, int]], worker_id: int,
                transport: str = "tcp", shm_seg: Optional[str] = None,
-               prewarm_gate: Optional[str] = None) -> int:
-    """One worker's life for one job (solo path). ``shm_seg`` is the base
-    name of the supervisor's segments under ``transport='shm'``;
-    ``prewarm_gate`` makes it a pre-warmed successor (module docstring)."""
+               prewarm_gate: Optional[str] = None,
+               job_id: Optional[str] = None,
+               stop_event: Optional[threading.Event] = None,
+               compute_lock: Optional[threading.Lock] = None) -> int:
+    """One worker's life for one job. ``shm_seg`` is the base name of the
+    supervisor's segments under ``transport='shm'``; ``prewarm_gate``
+    makes it a pre-warmed successor (module docstring).
+
+    Solo (``job_id is None``) no RPC carries a ``job`` header and no key a
+    prefix. In a fleet process ``job_id`` tags every RPC (the broker routes
+    it to that job's core) and prefixes every leaf key
+    (``sharding.job_namespace``); ``compute_lock`` serialises the compute
+    phases of the process's jobs; ``stop_event`` is the shared invocation
+    boundary: the first thread to reach its step budget sets it, and every
+    sibling winds down at its next loop top or barrier slice."""
     # the cold start's parts (seconds), printed to the log once the worker
     # is ready to train: the import, the hello, the workload (the CUDA
     # context with it), a successor's warm-up and gate, the restore
@@ -171,6 +193,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
     # part of the measured cold start of each invocation
     import torch
 
+    from repro_torch import device as device_lib
     from repro_torch import optim
     from repro_torch import tree as tree_lib
     from repro_torch.checkpoint import store as ckpt
@@ -187,6 +210,10 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
     def _policy() -> RetryPolicy:
         return rpc_policy
 
+    # fleet: the job's tag on every RPC and prefix on every key; solo adds
+    # nothing, so its headers and keys stay as they were
+    jtag = {} if job_id is None else {"job": str(job_id)}
+    ns = sharding.job_namespace(job_id)
     n_shards = len(addrs)
     # the transport factory is the only transport-aware line
     conns = [
@@ -218,7 +245,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
 
     # a warm hello fetches the job without touching the slot's status: the
     # previous invocation still owns it until its bye
-    hello, _ = rpc0({"t": "hello", "worker": worker_id,
+    hello, _ = rpc0({"t": "hello", "worker": worker_id, **jtag,
                      **({"warm": True} if prewarm_gate is not None else {})})
     job = hello["job"]
     mark("hello")
@@ -234,9 +261,14 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
     if wfaults is not None:
         wfaults.install()
 
+    dev = device_lib.resolve(job.get("device", "cuda"))
+    if job_id is not None and dev.type == "cuda":
+        # this job's stream, before its first tensor: every allocation and
+        # kernel of the job runs there, and its syncs wait for nothing of
+        # a sibling job's (the current stream is the thread's own)
+        torch.cuda.set_stream(torch.cuda.Stream(dev))
     wl = workload_lib.build(job["workload"], job["workload_cfg"],
-                            device=job.get("device", "cuda"))
-    dev = wl.device
+                            device=str(dev))
     if dev.type == "cuda":
         # sorted (not atomic) scatter-adds in the PMF backward: bit-identical
         # gradients run to run. The flag is set where
@@ -273,10 +305,13 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
     partitioner = str(job.get("partitioner", "greedy"))
     leaf_keys = protocol.tree_keys(params)
     assignment = sharding.tree_assignment(
-        params, n_shards, split_bytes=split_bytes, partitioner=partitioner,
+        params, n_shards, split_bytes=split_bytes, namespace=ns,
+        partitioner=partitioner,
     )
+    # decode accumulators are keyed by the namespaced keys the metas
+    # carry: one job can never decode into another's buffers
     leaf_like = {
-        k: (tuple(leaf.shape), leaf.dtype)
+        ns + k: (tuple(leaf.shape), leaf.dtype)
         for k, leaf in zip(leaf_keys, tree_lib.leaves(params))
     }
 
@@ -316,7 +351,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         if wfaults is not None:
             wfaults.uninstall()  # the farewell RPCs run fault-free
         hdr = {"t": "bye", "worker": worker_id, "reason": reason,
-               "wall": time.time()}
+               "wall": time.time(), **jtag}
         if launches:
             hdr["launches"] = launches
         rpc0(hdr)
@@ -325,16 +360,20 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
 
     def pull_all(step: int):
         """One barrier's worth of pipelined coalesced pulls. Returns
-        (exit_code, shard_parts): None on success, 3 abort, 5 deadline."""
+        (exit_code, shard_parts): None on success, 3 abort, 5 deadline, 7
+        when a sibling job's thread declared the invocation boundary
+        (fleet; checked between the 2 s poll slices, never mid-RPC)."""
         nonlocal key_next
         deadline = time.monotonic() + pull_deadline_s
         shard_parts: list = [None] * n_shards
         pending = list(range(n_shards))
         while pending:
+            if stop_event is not None and stop_event.is_set():
+                return 7, None
             resps = fanout(
                 pending,
                 [{"t": "pull", "worker": worker_id, "step": step,
-                  "timeout_s": 2.0} for _ in pending],
+                  "timeout_s": 2.0, **jtag} for _ in pending],
             )
             nxt = []
             for s, (resp, blob) in zip(pending, resps):
@@ -366,12 +405,13 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
                     flush_acc[q].add_encoded(m, view, impl=wire_impl)
                 else:
                     sums.add_encoded(m, view, impl=wire_impl)
-        peers_sum = tree_lib.unflatten(params, [sums[k] for k in leaf_keys])
+        peers_sum = tree_lib.unflatten(
+            params, [sums[ns + k] for k in leaf_keys])
         flushes = []
         for q, acc in flush_acc.items():
             acc.assert_complete(what=f"flush from worker {q}")
-            flushes.append(
-                (q, tree_lib.unflatten(params, [acc[k] for k in leaf_keys])))
+            flushes.append((q, tree_lib.unflatten(
+                params, [acc[ns + k] for k in leaf_keys])))
         return peers_sum, flushes
 
     def apply_flushes(params, flushes, deliver_step: int):
@@ -384,8 +424,10 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         return params
 
     def sync() -> None:
+        # the current stream: the default one solo, the job's own in a
+        # fleet process (a sibling job's queued work is not waited for)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
 
     def ssp_drain(params):
         """Catch-up merge: the last regular pull (step T) delivered the
@@ -405,8 +447,12 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         sync()
         return None, params
 
+    # this thread's launches: in a fleet process the sibling jobs' threads
+    # count their own
+    my_launches = kbuild.thread_launches()
+
     def launched_since(before: dict) -> dict:
-        return {k: v - before.get(k, 0) for k, v in kbuild.LAUNCHES.items()
+        return {k: v - before.get(k, 0) for k, v in my_launches.items()
                 if v != before.get(k, 0)}
 
     if prewarm_gate is not None:
@@ -422,7 +468,8 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         w_u, w_sig = compute(w_params, w_opt, w_res, wl.batch(0), 1.0, 1)[:2]
         w_enc, _ = sharding.encode_tree_sharded(
             w_sig, assignment, n_shards, scheme=wire_scheme,
-            quant=wire_quant, split_bytes=split_bytes, impl=wire_impl)
+            quant=wire_quant, split_bytes=split_bytes, namespace=ns,
+            impl=wire_impl)
         w_peers, _ = decode_parts([
             protocol.pack_parts([({"worker": worker_id, "step": 0,
                                    "meta": meta}, parts)])
@@ -437,7 +484,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         while not os.path.exists(prewarm_gate):
             time.sleep(0.02)
         # now this invocation owns the worker's slot: announce for real
-        hello2, _ = rpc0({"t": "hello", "worker": worker_id})
+        hello2, _ = rpc0({"t": "hello", "worker": worker_id, **jtag})
         members.update(hello2)
         mark("gate")
 
@@ -453,7 +500,9 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         start_step = latest + 1
         last_saved = latest
     mark("restore")
-    print("startup " + json.dumps(startup), flush=True)
+    # a fleet thread's line names its job: 'startup:<job> {...}'
+    print(("startup " if job_id is None else f"startup:{job_id} ")
+          + json.dumps(startup), flush=True)
 
     t = start_step
     steps_this_invocation = 0
@@ -469,11 +518,12 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
             per_shard, _ = sharding.encode_tree_sharded(
                 flushed, assignment, n_shards,
                 quant=wire_quant, impl=wire_impl, split_bytes=split_bytes,
+                namespace=ns,
             )
             fanout(
                 list(range(n_shards)),
                 [{"t": "flush", "worker": worker_id, "step": ev,
-                  "meta": meta} for meta, _ in per_shard],
+                  "meta": meta, **jtag} for meta, _ in per_shard],
                 [parts for _, parts in per_shard],
             )
             bye("evicted")
@@ -498,8 +548,13 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
                 # straight to bye; a SIGKILL mid-drain restores a step
                 # <= total_steps, replays (publishes dup-check identical)
                 # and drains again from scratch
-                launches0 = dict(kbuild.LAUNCHES)
+                launches0 = dict(my_launches)
                 code, params = ssp_drain(params)
+                if code == 7:
+                    # the invocation ended mid-drain: no checkpoint of
+                    # partly drained params; the respawn re-drains
+                    bye("invocation-end")
+                    return 0
                 if code is not None:
                     # no checkpoint of partly drained params: the respawn
                     # restores a pre-drain step and re-drains (pulls are
@@ -511,28 +566,38 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
                 save_ckpt(t - 1)
                 bye("done")
             return 0
-        if steps_this_invocation >= invocation_steps:
+        if steps_this_invocation >= invocation_steps or (
+                stop_event is not None and stop_event.is_set()):
+            if stop_event is not None:
+                # the first thread at its budget ends the invocation for
+                # the whole process: one respawn serves every job
+                stop_event.set()
             save_ckpt(t - 1)
             bye("invocation-end")
             return 0
 
         tp = time.perf_counter
-        launches0 = dict(kbuild.LAUNCHES)
+        launches0 = dict(my_launches)
         t0 = tp()
         # -- fetch
         if key_next is None:
-            resp, _ = rpc0({"t": "batch", "worker": worker_id, "step": t})
+            resp, _ = rpc0({"t": "batch", "worker": worker_id, "step": t,
+                            **jtag})
             members.update(resp)
             key = int(resp["key"])
         else:
             key = key_next
         batch = wl.batch(key)
         t_fetch = tp()
-        # -- compute: grads -> optimizer -> ISP split (B2, or B1)
+        # -- compute: grads -> optimizer -> ISP split (B2, or B1); in a
+        #    fleet process the lock serialises the jobs' compute phases
+        #    (the invocation models one billable vCPU)
         p_act = members.p_active(t)
-        u, sig, res, opt_state, loss, sent, inv_err = compute(
-            params, opt_state, residual, batch, 1.0 / p_act, t)
-        sync()
+        with compute_lock if compute_lock is not None else (
+                contextlib.nullcontext()):
+            u, sig, res, opt_state, loss, sent, inv_err = compute(
+                params, opt_state, residual, batch, 1.0 / p_act, t)
+            sync()
         if wfaults is not None:
             # the straggler's injected stall, inside the compute phase:
             # the peers' exposure to it is what ISP and SSP price apart
@@ -546,7 +611,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
             sig, assignment, n_shards,
             scheme=wire_scheme, quant=wire_quant,
             with_residual=(wire_quant != "none"),
-            split_bytes=split_bytes, impl=wire_impl,
+            split_bytes=split_bytes, namespace=ns, impl=wire_impl,
         )
         if qerr is not None:
             res = tree_lib.tree_map(lambda r, e: r + e.to(r.dtype), res, qerr)
@@ -557,7 +622,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         pub_hdrs = []
         for s, (meta, _parts) in enumerate(per_shard):
             hdr = {"t": "publish", "worker": worker_id, "step": t,
-                   "meta": meta}
+                   "meta": meta, **jtag}
             if s == 0:
                 hdr.update(loss=loss, sent_fraction=sent, inv_err=inv_err,
                            wire_bytes=total_bytes)
@@ -566,6 +631,13 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
                              [parts for _, parts in per_shard]):
             members.update(ack)
         code, shard_parts = pull_all(t)
+        if code == 7:
+            # a sibling ended the invocation mid-barrier: step t is
+            # published but not pulled, and the optimizer state has moved
+            # on, so exit without a checkpoint; the respawn replays
+            # (its publishes dup-check bit-identical)
+            bye("invocation-end")
+            return 0
         if code is not None:
             return code
         t_wire = tp()
@@ -586,7 +658,7 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         t_apply = tp()
         launched = launched_since(launches0)
         report = {
-            "t": "report", "worker": worker_id, "step": t,
+            "t": "report", "worker": worker_id, "step": t, **jtag,
             "dur_s": float(t_apply - t0),
             "phase": {
                 "fetch": t_fetch - t0,
@@ -605,6 +677,52 @@ def run_worker(addrs: list[tuple[str, int]], worker_id: int,
         if t % checkpoint_every == 0:
             save_ckpt(t)
         t += 1
+
+
+def run_worker_fleet(addrs: list[tuple[str, int]], worker_id: int,
+                     job_ids: list[str], transport: str = "tcp",
+                     shm_seg: Optional[str] = None) -> int:
+    """One invocation hosting several jobs: one ``run_worker`` thread a
+    job, bin-packed onto one billable process (DESIGN.md §14.3).
+
+    Each thread owns its per-shard connections (a transport is not
+    thread-safe); under shm a job rides its own segment family
+    ``<base>g<job>s<shard>``. A shared stop event makes the invocation
+    boundary process-wide, and a shared lock serialises the compute
+    phases, so one job computes while its siblings stall on barriers. A
+    thread that fails (nonzero code) also declares the boundary: its
+    siblings wind down as ``bye:invocation-end`` while the failed job's
+    status stays ``running``, which is what the scheduler's reaper reads
+    as its crash. Returns the largest code of the threads (0 when every
+    job ended cleanly)."""
+    stop_event = threading.Event()
+    compute_lock = threading.Lock()
+    codes: dict[str, int] = {}
+
+    def _one(jid: str) -> None:
+        seg = f"{shm_seg}g{jid}" if shm_seg else None
+        try:
+            code = run_worker(addrs, worker_id, transport=transport,
+                              shm_seg=seg, job_id=jid, stop_event=stop_event,
+                              compute_lock=compute_lock)
+        except SystemExit as e:
+            code = int(e.code or 0)
+        except BaseException:
+            import traceback
+
+            traceback.print_exc()
+            code = 1
+        codes[jid] = code
+        if code != 0:
+            stop_event.set()
+
+    threads = [threading.Thread(target=_one, args=(jid,), name=f"job-{jid}")
+               for jid in job_ids]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return max(codes.values()) if codes else 1
 
 
 def _parse_addrs(spec: str) -> list[tuple[str, int]]:
@@ -626,7 +744,12 @@ def main() -> None:
                     "(wire.framing.make_transport); shm needs --shm-seg")
     ap.add_argument("--shm-seg", default=None,
                     help="shared-memory segment base name (supervisor-"
-                    "allocated); shard s attaches '<base>s<s>'")
+                    "allocated); shard s attaches '<base>s<s>' (fleet: "
+                    "'<base>g<job>s<s>')")
+    ap.add_argument("--jobs", default=None,
+                    help="comma-separated job ids: one training thread a "
+                    "job, bin-packed onto this one invocation (the fleet; "
+                    "every RPC is tagged with its job)")
     ap.add_argument("--prewarm-gate", default=None,
                     help="pre-warmed respawn: warm up, touch "
                     "'<gate>.ready', then hold until the gate file "
@@ -634,7 +757,16 @@ def main() -> None:
     args = ap.parse_args()
     if args.transport == "shm" and not args.shm_seg:
         ap.error("--transport shm requires --shm-seg")
-    raise SystemExit(run_worker(_parse_addrs(args.brokers), args.worker_id,
+    addrs = _parse_addrs(args.brokers)
+    if args.jobs:
+        if args.prewarm_gate:
+            ap.error("--prewarm-gate is a solo-job option: the fleet "
+                     "refuses prewarm")
+        raise SystemExit(run_worker_fleet(
+            addrs, args.worker_id,
+            [j.strip() for j in args.jobs.split(",") if j.strip()],
+            transport=args.transport, shm_seg=args.shm_seg))
+    raise SystemExit(run_worker(addrs, args.worker_id,
                                 transport=args.transport,
                                 shm_seg=args.shm_seg,
                                 prewarm_gate=args.prewarm_gate))

@@ -162,10 +162,11 @@ def test_every_module_imports_without_jax_or_repro():
         "           'repro_torch.models.xlstm', 'repro_torch.models.attention',\n"
         "           'repro_torch.configs', 'repro_torch.data.tokens',\n"
         "           'repro_torch.dist.compression', 'repro_torch.dist.elastic',\n"
-        "           'repro_torch.launch.train'}\n"
+        "           'repro_torch.launch.train',\n"
+        "           'repro_torch.runtime.scheduler'}\n"
         "missing -= set(names)\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 54 else 0)\n"
+        "sys.exit(1 if bad or missing or len(names) < 61 else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=dict(os.environ, PYTHONPATH=SRC),
@@ -197,19 +198,30 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
 
 
 @pytest.mark.parametrize("kw", (
-    {"argv": ["--jobs", "a,b"]},
+    {"jobs": {"a": {}, "b": {"n_brokers": 2}}, "argv": [],
+     "raises": ValueError, "match": "n_brokers"},
+    {"jobs": {"a": {}, "b": {"transport": "shm"}}, "argv": [],
+     "raises": ValueError, "match": "transport"},
+    {"jobs": {"a": {}}, "argv": ["--chaos", "0:auto"],
+     "raises": SystemExit, "match": "--chaos"},
+    {"jobs": {"a": {}}, "argv": ["--retune", '3:{"n_brokers": 2}'],
+     "raises": SystemExit, "match": "--retune"},
 ))
 def test_unported_options_raise(tmp_path, monkeypatch, kw):
-    """What the port still refuses: the fleet flag of the CLI (SSP and shm
-    are ported: tests/test_torch_ssp.py, test_torch_shm.py; chaos, prewarm
-    and hostperf: test_torch_chaos.py, test_torch_prewarm.py; retune and
-    topology-tune: test_torch_topology.py)."""
+    """What the fleet CLI (``--jobs``) refuses before any spawn: jobs that
+    disagree on the pool's topology (they share its processes), and a
+    chaos plan or a live re-shard (both would act on processes that every
+    job shares). The fleet itself runs: tests/test_torch_fleet.py."""
     from repro_torch.launch import train as train_cli
 
+    jobs = tmp_path / "jobs.json"
+    jobs.write_text(json.dumps({"jobs": {
+        jid: dict({"workload_cfg": WCFG, "n_workers": 2}, **spec)
+        for jid, spec in kw["jobs"].items()}}))
     monkeypatch.setattr(sys, "argv", [
         "train", "--runtime", "faas", "--device", "cpu", "--steps", "1",
-        "--run-dir", str(tmp_path / "r"), *kw["argv"]])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+        "--run-dir", str(tmp_path / "r"), "--jobs", str(jobs), *kw["argv"]])
+    with pytest.raises(kw["raises"], match=kw["match"]):
         train_cli.main()
     assert not os.path.exists(tmp_path / "r")  # refused before any spawn
 
