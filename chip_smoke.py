@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught):
    spills (a spill fails the run); the B7 library's SASS (``cuobjdump
    -sass``) must hold ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads):
    the bf16 forward was built for the tensor cores;
-3. bit-exactness — B1 (significance filter), B4 (wire pack) and B5 (wire
+3. bit-exactness (run after 4c, beside the invariant pool of 5: both
+   are checked, neither timed) — B1
+   (significance filter), B4 (wire pack) and B5 (wire
    unpack-add) against their plain PyTorch versions on the card, at
    n in {1, 7, 13, 127, 1000003, 213620, 1431340}, with -0.0 and all-zero
    tiles in the inputs; B4 at float32, fp16 and bf16, B5 on float32 and
@@ -36,8 +38,11 @@ Phases (any failure exits non-zero; nothing is caught):
    / 256, causal and not, windows 64, 100 and 128, q_offsets (Sq 128
    against Skv 384 at 256, Sq 100 against Skv 300 at 200), ragged lengths
    (127, 129, 200, 255, 333, 1000; the tensor-core tile edges at Dh 32,
-   64 and 128), GQA 24/8, 12/4 and 8/2, phi4-mini's prefill (B 4, S 1024)
-   and lm-100m's bsp step (B 16, S 256, H 12); B8 (sLSTM scan) against
+   64 and 128), GQA 24/8, 12/4 and 8/2, phi4-mini's prefill (B 4, S 1024),
+   lm-100m's bsp step (B 16, S 256, H 12), and the serving prefills'
+   windows: gemma3-12b's local layers (B 4, S 2,048, H 16/8, Dh 256,
+   window 1,024) and mixtral-8x22b's (B 2, S 5,120, H 48/8, Dh 128,
+   window 4,096); B8 (sLSTM scan) against
    ``ref.slstm_scan_ref`` on h and the final (c, n, h), from a zero and a
    non-zero state, on both routes: the cluster route (bf16 R) at B 2, S
    16, d 64, H 2 (2e-5) and at xlstm-1.3b's prefill width (S 1024, d
@@ -58,7 +63,10 @@ Phases (any failure exits non-zero; nothing is caught):
    4 workers, 10 steps, 5 steps per invocation for the PMF-Nesterov
    bitmap leg; the other legs take their steps in one invocation (each
    invocation costs 4 cold starts); the B2 ones and SSP cross the
-   boundary in the invariant runs instead. Each job once with
+   boundary in the invariant runs instead. The PMF-Nesterov bitmap leg
+   runs first and alone (its steady step is the main path's step time);
+   the others run at the end of the invariant pool (phase 5), checked,
+   not timed. Each job once with
    ``--wire-scheme bitmap`` and once with ``auto``: the PMF job at ML-10M
    width (U 10681 x 20, M 20 x 71567) with Nesterov (B1, B4, B5), and the
    LR job on dense Criteo (13 features, 200,000 samples, batch 256) with
@@ -128,7 +136,10 @@ Phases (any failure exits non-zero; nothing is caught):
    eval RMSE or BCE within 1e-3 relative: the two devices sum in different
    orders). PMF-Nesterov's pre-warmed rerun runs alone, so that its wall
    reads beside pmf_bitmap's; the other runs go side by side, five at a
-   time: they are checked for bits, not timed. First in that pool the
+   time, the main-path legs after pmf_bitmap last, while this process
+   runs phase 3 and then the in-process trainer's legs below, one at a
+   time: they are checked for bits, not timed. After the pool no process of the port
+   but this one may be left (``[processes]`` line). First in that pool the
    retune leg, ``pmf_retune``: PMF-Nesterov bitmap, 4 workers, 10 steps in
    one invocation, one tcp shard re-sharded live to 2 shm shards at step
    3 and back to one tcp shard at 7 (``--retune``), worker 0 sleeping
@@ -153,13 +164,18 @@ Phases (any failure exits non-zero; nothing is caught):
    worker's launches of its job's kernels, nothing left in /dev/shm
    (evictions depend on timing: no digest); both without a dup mismatch,
    each logged on a ``[fleet]`` line (the pooled bill, its rollup, the
-   invocations). Then the LM serving paths,
-   ``python -m repro_torch.launch.serve --no-smoke`` at full width for
-   phi4-mini-3.8b
-   (B7 in its 32 attention layers) and xlstm-1.3b (B8 in its 6 sLSTM
-   blocks), 8 requests, 4 slots, prompt 1024, 32 new tokens each, one after
-   the other in fresh processes: B7 must launch 32 times and B8 6 times
-   (one prefill), and the new tokens must be the reference loop's count.
+   invocations). Then the LM serving paths (``SERVE``), at full width in
+   bf16, one after the other in fresh processes: ``python -m
+   repro_torch.launch.serve --no-smoke`` for phi4-mini-3.8b (B7 in its 32
+   attention layers) and xlstm-1.3b (B8 in its 6 sLSTM blocks), 8
+   requests, 4 slots, prompt 1024, 32 new tokens each, and gemma3-12b (its
+   48 layers, 40 of them sliding-window: B7 with the window of 1,024 and
+   a ring cache), 8 requests, 4 slots, prompt 2,048, 32 new; then
+   mixtral-8x22b cut to 8 of its 56 layers (sliding window 4,096, MoE 8
+   experts top-2) through ``serve.serve(args, cfg=...)`` (``serve_cut``),
+   4 requests, 2 slots, prompt 5,120, 32 new. B7 must launch exactly 32,
+   48 and 8 times and B8 6 times (one prefill), and the new tokens must be
+   the reference loop's count.
    The in-process trainer, ``python -m repro_torch.launch.train --runtime
    inproc --arch lm-100m --mode isp-pod`` at the JAX CLI's defaults (4 pods
    x 4 sequences x 256 tokens, Adam 3e-4, v 0.7), 10 steps with ``--scheme
@@ -178,12 +194,17 @@ Phases (any failure exits non-zero; nothing is caught):
    220, B7 80); in this process one profiled lm-100m bsp step, and lm-100m
    cut to 2 layers in float32 for 3 bsp steps on the card and on the CPU
    from the same seeded parameters, losses within 1e-3 relative. Last, each
-   serving arch cut in depth (phi4 2 layers, xlstm one superblock),
+   serving arch cut in depth (``CARD_VS_CPU``: phi4 2 layers, xlstm one
+   superblock, gemma3 one local and one global layer, mixtral 1 layer),
    float32, the same seeded parameters on the card and on the CPU: prefill
-   logits of a 128-token prompt in 2 slots within 1e-3, and the first 4
-   greedy tokens compared (TF32 off for matmul and cuDNN). A profile of one
-   prefill and 8 decode steps of each arch (device time, busy share,
-   largest kernels, B8's share) says where a serving run's time goes;
+   logits within 1e-3 of a 128-token prompt in 2 slots (gemma3: 1,040
+   tokens in 1 slot, past its window), and the greedy tokens of 2 decode
+   steps (gemma3: 4, on the wrapped ring) compared (TF32 off for matmul
+   and cuDNN). A profile of one prefill and 4 decode steps of each served
+   config (device time, busy share, largest kernels, B7's or B8's share)
+   says where a serving run's time goes. Every profile traces device
+   activity only (the host trace's post-processing cost more than the
+   steps it traced);
 5b. simulator — the serverless training simulator in this process
    (``repro_torch.core.simulator``), ``examples/mlless_pmf.py``'s jobs at
    ML-10M width: P = 8 replicas of 2,048 ratings a step, Nesterov 0.08, v
@@ -206,11 +227,13 @@ Phases (any failure exits non-zero; nothing is caught):
    again at lm-100m's FF leaf with every operand bfloat16 (B3's row),
    B3 beside ``torch._fused_adamw_`` on the same bfloat16 tensors. B4 and
    B5 (and B5's decode-only form) must issue exactly one device operation
-   a call (profiler counts: no memset, no second kernel; counted in the
-   bit-exactness phase, at 4% density, while the tracer is fresh). B7 at
-   phi4-mini's prefill and at the lm-100m bsp, lm-100m isp-pod and lm-8m
-   bsp attention shapes, each beside one ``scaled_dot_product_attention``
-   call, and B8 at xlstm-1.3b's prefill (its plan, the clusters the card
+   a call (profiler counts: no memset, no second kernel; counted right
+   after the build, alone on the card, at the main path's density and at
+   4%, while the tracer is fresh). B7 at
+   phi4-mini's prefill, the lm-100m bsp, lm-100m isp-pod and lm-8m bsp
+   attention shapes, and the two windowed prefills above, each beside one
+   ``scaled_dot_product_attention`` call (a window as a boolean
+   ``attn_mask``), and B8 at xlstm-1.3b's prefill (its plan, the clusters the card
    holds at once, and one cluster a head against two, in turns), each
    beside the larger of its bytes over 3.35 TB/s and its operations over
    the peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32);
@@ -230,6 +253,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -317,10 +341,36 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # by one, at bf16's unit roundoff
 BF16_U = 2.0 ** -8
 SLSTM_TOL, SLSTM_TOL_FULL = 2e-5, 1e-4
-# the LM serving paths: arch -> (the kernel, its launches in one prefill)
-SERVE = {"phi4-mini-3.8b": ("flash_attention", 32),
-         "xlstm-1.3b": ("slstm_scan", 6)}
-SERVE_ARGS = {"requests": 8, "slots": 4, "prompt_len": 1024, "gen_len": 32}
+# the LM serving paths, each at full width in bf16: arch -> the kernel, its
+# launches in one prefill, the run's arguments and, for a depth cut, its
+# layers. gemma3's prompt is twice its local window (the window masks, the
+# ring keeps the tail, decode wraps); mixtral (141B parameters) is cut to 8
+# of its 56 layers to fit the card, its prompt past its window of 4,096
+SERVE = {
+    "phi4-mini-3.8b": dict(kernel="flash_attention", per_prefill=32,
+                           requests=8, slots=4, prompt_len=1024, gen_len=32),
+    "xlstm-1.3b": dict(kernel="slstm_scan", per_prefill=6, requests=8,
+                       slots=4, prompt_len=1024, gen_len=32),
+    "gemma3-12b": dict(kernel="flash_attention", per_prefill=48, requests=8,
+                       slots=4, prompt_len=2048, gen_len=32),
+    "mixtral-8x22b": dict(kernel="flash_attention", per_prefill=8,
+                          requests=4, slots=2, prompt_len=5120, gen_len=32,
+                          layers=8),
+}
+# card against CPU, float32 at full width: arch -> the depth cut's blocks
+# (indices into the first group's superblock), reps, prompt, slots and
+# greedy decode steps. gemma3's 1,040-token prompt crosses its window of
+# 1,024 (prefill leaves the ring wrapped) and its decode steps write the
+# ring's slots 16..19
+CARD_VS_CPU = {
+    "phi4-mini-3.8b": dict(blocks=(0,), reps=2, prompt=128, slots=2,
+                           steps=2),
+    "xlstm-1.3b": dict(blocks=None, reps=1, prompt=128, slots=2, steps=2),
+    "gemma3-12b": dict(blocks=(0, -1), reps=1, prompt=1040, slots=1,
+                       steps=4),
+    "mixtral-8x22b": dict(blocks=(0,), reps=1, prompt=128, slots=2,
+                          steps=2),
+}
 LM_CPU_TOL = 1e-3  # card vs CPU, float32 logits (sums in other orders)
 # the simulator phase: examples/mlless_pmf.py's jobs at ML-10M width, P
 # workers of SIM_B ratings, Nesterov, v 0.7, an 8,192-rating eval batch
@@ -348,9 +398,16 @@ class SmokeFailure(Exception):
     pass
 
 
+_LOG_LOCK = threading.Lock()
+
+
 def log(tag: str, **kv) -> None:
-    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
-          flush=True)
+    """One line on stdout, whole: phases that run side by side log from
+    their own threads."""
+    line = f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()) + "\n"
+    with _LOG_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def require(cond: bool, msg: str) -> None:
@@ -703,7 +760,11 @@ FLASH_CASES = (
        (1, 300, 300, 2, 2, 64, True, 100, 0),  # window 100
        (2, 256, 256, 12, 4, 64, True, None, 0),  # GQA 12/4
        (2, 256, 256, 8, 2, 32, True, None, 0),  # GQA 8/2
-       (16, 256, 256, 12, 12, 64, True, None, 0)])  # lm-100m bsp step
+       (16, 256, 256, 12, 12, 64, True, None, 0),  # lm-100m bsp step
+       # the serving prefills' sliding windows: gemma3-12b's local layers,
+       # mixtral-8x22b's layers
+       (4, 2048, 2048, 16, 8, 256, True, 1024, 0),
+       (2, 5120, 5120, 48, 8, 128, True, 4096, 0)])
 
 
 def _mha_p_bf16(q, k, v, causal, window, q_offset):
@@ -728,10 +789,13 @@ def _mha_p_bf16(q, k, v, causal, window, q_offset):
         allow &= k_pos <= q_pos
     if window is not None:
         allow &= q_pos - k_pos < window
-    logits = torch.where(allow, logits, ref.NEG_INF)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    # in place: at mixtral's prefill (B 2, S 5,120, H 48) each (B, H, Sq,
+    # Skv) float32 tensor takes 10 GB
+    p = logits.masked_fill_(~allow, ref.NEG_INF)
+    p = p.sub_(p.amax(-1, keepdim=True)).exp_()
     l = p.sum(-1, keepdim=True)
     pb = p.bfloat16().float()
+    del logits, p
 
     def pv(x):
         y = torch.einsum("bkgqc,bckd->bkgqd", pb, x) / l
@@ -787,6 +851,10 @@ def check_flash(dev) -> float:
                 Skv=skv, H=f"{h}/{kh}", Dh=dh, dtype=name, causal=causal,
                 window=window, q_offset=off, max_abs_err=err,
                 tolerance=FLASH_TOL[name], **extra)
+            del q, k, v, got
+    # the mixtral case's references take tens of GB: give them back to the
+    # card, which the serving processes need whole
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -1177,55 +1245,83 @@ def left_in_dev_shm(res: dict) -> list:
             if n.startswith(res["shm_token"])]
 
 
-def main_path(tmp: str) -> dict:
-    from repro_torch.kernels import build
+def _leg_dir(tmp: str, label: str) -> str:
+    return os.path.join(tmp, f"main_{label}")
 
-    runs = {}
-    for label, job, scheme, must, kw in LEGS:
-        d = os.path.join(tmp, f"main_{label}")
-        build.reset_launches()  # this process; each worker starts at 0
-        opts = _leg_opts(scheme=scheme, **kw)
-        res, = run_trains([(d, job, opts)])
-        launches = res["kernel_launches_by_worker"]
-        require(res["steps"] == 10 and res["final_pool"] == 4,
-                f"{label}: steps={res['steps']} pool={res['final_pool']}")
-        require(res["dup_mismatches"] == 0, f"{label}: dup mismatches")
-        require(sorted(launches) == ["0", "1", "2", "3"],
-                f"{label}: launch telemetry from workers {sorted(launches)}")
-        for w, counts in launches.items():
-            for name in must:
-                require(counts.get(name, 0) > 0,
-                        f"{label}: {name} launched 0 times on worker {w}")
-            if job["optimizer"] == "adam":
-                require(counts.get("significance_filter", 0) == 0,
-                        f"{label}: B1 launched on worker {w} of an Adam leg")
-            if label in EXACT:
-                got = {k: counts.get(k, 0) for k in EXACT[label]}
-                require(got == EXACT[label],
-                        f"{label}: worker {w} launched {got}, not "
-                        f"{EXACT[label]}")
-        require(left_in_dev_shm(res) == [],
-                f"{label}: segments left in /dev/shm")
-        sent = [r["sent_fraction"] for r in res["history"]]
-        require(sum(sent) > 0, f"{label}: nothing was sent")
-        require(res["final_eval"] is not None
-                and math.isfinite(res["final_eval"]),
-                f"{label}: final eval {res['final_eval']}")
-        log("main-path", leg=label, workload=job["workload"],
-            optimizer=job["optimizer"], scheme=scheme, impl="cuda",
-            consistency=res["consistency"], slack=res["slack"],
-            transport=res["transport"], steps=res["steps"], final_loss=res["final_loss"],
-            final_eval=res["final_eval"],
-            wire_bytes_total=res["wire_bytes_total"],
-            step_s_mean=res["measured_step_s"], wall_s=res["wall_s"],
-            worker_seconds=res["bill"]["worker_seconds"],
-            n_invocations=res["n_invocations"],
-            sent_fraction_mean=sum(sent) / len(sent),
-            phase_s_mean=json.dumps(res["phase_s_mean"]),
-            steady=json.dumps(steady(res, opts["inv_steps"])),
-            startup=json.dumps(startup_split(d)),
-            launches=json.dumps(launches))
-        runs[label] = (d, res)
+
+def _check_leg(leg: tuple, d: str, res: dict) -> None:
+    """One main-path leg's checks and its ``[main-path]`` line."""
+    label, job, scheme, must, kw = leg
+    opts = _leg_opts(scheme=scheme, **kw)
+    launches = res["kernel_launches_by_worker"]
+    require(res["steps"] == 10 and res["final_pool"] == 4,
+            f"{label}: steps={res['steps']} pool={res['final_pool']}")
+    require(res["dup_mismatches"] == 0, f"{label}: dup mismatches")
+    require(sorted(launches) == ["0", "1", "2", "3"],
+            f"{label}: launch telemetry from workers {sorted(launches)}")
+    for w, counts in launches.items():
+        for name in must:
+            require(counts.get(name, 0) > 0,
+                    f"{label}: {name} launched 0 times on worker {w}")
+        if job["optimizer"] == "adam":
+            require(counts.get("significance_filter", 0) == 0,
+                    f"{label}: B1 launched on worker {w} of an Adam leg")
+        if label in EXACT:
+            got = {k: counts.get(k, 0) for k in EXACT[label]}
+            require(got == EXACT[label],
+                    f"{label}: worker {w} launched {got}, not "
+                    f"{EXACT[label]}")
+    require(left_in_dev_shm(res) == [],
+            f"{label}: segments left in /dev/shm")
+    sent = [r["sent_fraction"] for r in res["history"]]
+    require(sum(sent) > 0, f"{label}: nothing was sent")
+    require(res["final_eval"] is not None
+            and math.isfinite(res["final_eval"]),
+            f"{label}: final eval {res['final_eval']}")
+    log("main-path", leg=label, workload=job["workload"],
+        optimizer=job["optimizer"], scheme=scheme, impl="cuda",
+        consistency=res["consistency"], slack=res["slack"],
+        transport=res["transport"], steps=res["steps"],
+        final_loss=res["final_loss"], final_eval=res["final_eval"],
+        wire_bytes_total=res["wire_bytes_total"],
+        step_s_mean=res["measured_step_s"], wall_s=res["wall_s"],
+        worker_seconds=res["bill"]["worker_seconds"],
+        n_invocations=res["n_invocations"],
+        sent_fraction_mean=sum(sent) / len(sent),
+        phase_s_mean=json.dumps(res["phase_s_mean"]),
+        steady=json.dumps(steady(res, opts["inv_steps"])),
+        startup=json.dumps(startup_split(d)),
+        launches=json.dumps(launches), alone=leg is LEGS[0])
+
+
+def main_path(tmp: str) -> dict:
+    """The PMF-Nesterov bitmap leg, alone on the host: its steady step is
+    the main path's step time (the step profile's busy share reads it),
+    and the pre-warmed rerun's and the chaos leg's walls read beside its
+    wall. The other legs run in the invariant pool (``main_leg_jobs``,
+    ``check_main_legs``): they are checked for launches and bits, not
+    timed."""
+    leg = LEGS[0]
+    label, job, scheme, _, kw = leg
+    d = _leg_dir(tmp, label)
+    res, = run_trains([(d, job, _leg_opts(scheme=scheme, **kw))])
+    _check_leg(leg, d, res)
+    return {label: (d, res)}
+
+
+def main_leg_jobs(tmp: str) -> list:
+    """The other main-path legs, as ``run_trains`` jobs."""
+    return [(_leg_dir(tmp, label), job, _leg_opts(scheme=scheme, **kw))
+            for label, job, scheme, _, kw in LEGS[1:]]
+
+
+def check_main_legs(tmp: str, runs: dict, results: dict) -> None:
+    """Check the pooled legs (``results`` by run directory), add them to
+    ``runs``, then hold SSP against ISP and shm against tcp."""
+    for leg in LEGS[1:]:
+        d = _leg_dir(tmp, leg[0])
+        _check_leg(leg, d, results[d])
+        runs[leg[0]] = (d, results[d])
     # SSP is not quietly ISP; shm is tcp bit for bit
     d0, res0 = runs["pmf_bitmap"]
     dig0 = digest(d0, PMF)
@@ -1246,7 +1342,6 @@ def main_path(tmp: str) -> dict:
             "pmf_ssp_bitmap: no sentinel checkpoint after the drain")
     require(dig_shm == dig0, "pmf_bitmap_shm: digest differs from tcp")
     require(same_bytes, "pmf_bitmap_shm: per-step wire bytes differ")
-    return runs
 
 
 # Fig. 9's live half (benchmarks/fig9_ssp_vs_isp.py:57-59) at ML-10M width:
@@ -1622,7 +1717,7 @@ def check_prewarmed(label: str, d: str, res: dict, leg: str,
     invocation, and the leg's exact launches where it has them (the
     warm-up's launches are not reported). Logs each slot's readiness at
     promotion and both walls (the warm run's in the invariant pool, the
-    cold leg's alone)."""
+    cold leg's alone for PMF-Nesterov and in the pool for the others)."""
     overlaps = res["cold_start_overlaps"]
     logs = set(os.listdir(os.path.join(d, "logs")))
     log("prewarm", run=label, against=leg,
@@ -1825,20 +1920,17 @@ def check_fleet(fleet: list, results: dict, runs: dict) -> dict:
     return out
 
 
-def invariants(tmp: str, runs: dict, tune: tuple) -> tuple:
-    """The invariant pool; returns the retune leg's result and the fleet
-    runs' (their launches join the kernels line)."""
+def invariants(tmp: str, runs: dict, tune: tuple, beside) -> tuple:
+    """The invariant pool, with the main-path legs after the first
+    (``main_leg_jobs``) at its end; ``beside()`` runs in this thread while
+    the pool runs (work on the card that is checked, not timed). Returns
+    the retune leg's result, the fleet runs' (their launches join the
+    kernels line) and what ``beside()`` returned."""
     import torch
+    from concurrent.futures import ThreadPoolExecutor
 
     checks = {"pmf": (PMF, "pmf_bitmap"), "lr": (LR, "lr_bitmap")}
     shapes = {"pmf": [(10681, 20), (20, 71567)], "lr": [(13,), ()]}
-    for name, (job, leg) in checks.items():
-        params = final_params(runs[leg][0], job, "cuda")
-        leaves = list(params)
-        require([tuple(x.shape) for x in leaves] == shapes[name],
-                f"{name}: final param shapes")
-        require(all(bool(torch.isfinite(x).all()) for x in leaves),
-                f"{name}: non-finite params")
     # the invariant runs and the card/CPU reference pairs run side by side
     # in one pool: they are checked for bits, not timed. The LR and
     # PMF-Adam legs ran in one invocation, so their n_brokers=2 runs and
@@ -1900,16 +1992,29 @@ def invariants(tmp: str, runs: dict, tune: tuple) -> tuple:
     # five jobs at a time: they are checked for bits, not timed (seven at
     # once have kept a broker that imported torch from listening within
     # its 30 s on a slow host). The longest start first (the topology
-    # runs, then the pre-warmed ones), so that no long job starts last;
-    # results are keyed by run directory
+    # runs, then the pre-warmed ones) and the one-invocation main-path
+    # legs last, so that no long job starts last; results are keyed by run
+    # directory
     solo = batches["pmf"][1]  # labels[1], the rerun
     rest = [j for jobs in batches.values() for j in jobs if j is not solo]
     fleet = fleet_runs(tmp)
+    legs = main_leg_jobs(tmp)
     pool = topo + fleet + [j for j in rest if j[2].get("prewarm")] + [
-        j for j in rest if not j[2].get("prewarm")]
+        j for j in rest if not j[2].get("prewarm")] + legs
     results = dict(zip([solo[0]], run_trains([solo])))
-    results.update(zip([d for d, _, _ in pool], run_trains(
-        pool, timeout_s=800.0, stagger_s=2.0, max_parallel=5)))
+    with ThreadPoolExecutor(1) as ex:
+        pooled = ex.submit(run_trains, pool, timeout_s=900.0, stagger_s=2.0,
+                           max_parallel=5)
+        side = beside()
+        results.update(zip([d for d, _, _ in pool], pooled.result()))
+    check_main_legs(tmp, runs, results)
+    for name, (job, leg) in checks.items():
+        params = final_params(runs[leg][0], job, "cuda")
+        leaves = list(params)
+        require([tuple(x.shape) for x in leaves] == shapes[name],
+                f"{name}: final param shapes")
+        require(all(bool(torch.isfinite(x).all()) for x in leaves),
+                f"{name}: non-finite params")
     retune_res = check_topology_pool(topo, results, runs, tune)
     fleets = check_fleet(fleet, results, runs)
     for name, (job, leg) in checks.items():
@@ -1995,28 +2100,45 @@ def invariants(tmp: str, runs: dict, tune: tuple) -> tuple:
             require(all(by_job[3]["kernel_launches_by_worker"][w].get(
                 "adam_sig_update", 0) > 0 for w in ("0", "1")),
                 "lr-small: B2 not launched on the card")
-    return retune_res, fleets
+    return retune_res, fleets, side
 
 
 # -- phase 4c: the in-process isp-pod trainer --------------------------------
 
 
 def _inproc_cmd(out: str, extra: list) -> list:
-    return [sys.executable, "-m", "repro_torch.launch.train", "--runtime",
-            "inproc", *extra, "--log-every", "100", "--out", out]
+    return [sys.executable, "-X", "faulthandler", "-m",
+            "repro_torch.launch.train", "--runtime", "inproc", *extra,
+            "--log-every", "100", "--out", out]
 
 
 def _run_inproc(tmp: str, label: str, extra: list,
                 timeout_s: float = 300.0) -> dict:
+    """One in-process leg in a fresh process; past ``timeout_s`` it gets
+    SIGABRT first, so that its log ends with every thread's stack."""
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     out = os.path.join(tmp, f"pod_{label}.json")
+    errlog = os.path.join(tmp, f"pod_{label}.stderr.log")
     t0 = time.perf_counter()
-    proc = subprocess.run(_inproc_cmd(out, extra), env=env,
-                          capture_output=True, text=True, timeout=timeout_s)
+    with open(errlog, "wb") as err:
+        proc = subprocess.Popen(_inproc_cmd(out, extra), env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGABRT)
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
     wall = time.perf_counter() - t0
-    require(proc.returncode == 0, f"pod leg {label} failed "
-            f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    if proc.returncode != 0:
+        with open(errlog, "rb") as f:
+            tail = f.read().decode(errors="replace")[-6000:]
+        raise SmokeFailure(f"pod leg {label} failed ({proc.returncode}) "
+                           f"after {wall:.1f} s:\n{tail}")
     with open(out) as f:
         res = json.load(f)
     res["process_wall_s"] = wall
@@ -2126,8 +2248,7 @@ def pod_in_process(dev) -> dict:
     run(2)
     torch.cuda.synchronize(dev)
     build.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(1)
         torch.cuda.synchronize(dev)
@@ -2269,8 +2390,7 @@ def _profile_steps(fn, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(dev)
@@ -2422,26 +2542,70 @@ def reference_new_tokens(requests: int, slots: int, gen_len: int) -> int:
     return sum(count)
 
 
+def serve_cut(arch: str, out: str) -> None:
+    """Serve SERVE[arch]'s depth cut through ``serve.serve(args, cfg=...)``
+    (the loop a user calls, with the cut in place of the registered
+    config), writing its result to ``out``; run in a process of its own
+    by ``serve_paths``."""
+    import argparse
+
+    from repro_torch.launch import serve
+
+    a = SERVE[arch]
+    args = argparse.Namespace(
+        arch=arch, smoke=False, requests=a["requests"], slots=a["slots"],
+        prompt_len=a["prompt_len"], gen_len=a["gen_len"], seed=0,
+        device="cuda", out=out)
+    serve.serve(args, cfg=_serve_cfg(arch))
+
+
+def _serve_cfg(arch: str):
+    """SERVE[arch]'s config: the full one, or its first group's superblock
+    repeated ``layers`` times (bf16, full width)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    layers = SERVE[arch].get("layers")
+    if layers is None:
+        return cfg
+    sb, _ = cfg.groups[0]
+    return dataclasses.replace(cfg, groups=((sb, layers // len(sb)),))
+
+
 def serve_paths(tmp: str) -> dict:
     """``python -m repro_torch.launch.serve --no-smoke`` for each arch of
-    SERVE at full width, one after the other, each in a fresh process (its
-    launch counts start at 0); returns the result dicts."""
+    SERVE at full width (a depth cut through ``serve_cut``), one after the
+    other, each in a fresh process (its launch counts start at 0); returns
+    the result dicts."""
+    import torch
+
     from repro_torch.kernels import build
 
+    # mixtral's init peaks near 65 GB: nothing of this process may stay
+    # cached on the card
+    torch.cuda.empty_cache()
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    a = SERVE_ARGS
-    want_tokens = reference_new_tokens(a["requests"], a["slots"],
-                                       a["gen_len"])
     out = {}
-    for arch, (kernel, per_prefill) in SERVE.items():
+    for arch, a in SERVE.items():
+        want_tokens = reference_new_tokens(a["requests"], a["slots"],
+                                           a["gen_len"])
         path = os.path.join(tmp, f"serve_{arch}.json")
         build.reset_launches()
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--no-smoke",
-               "--arch", arch, "--requests", str(a["requests"]),
-               "--slots", str(a["slots"]), "--prompt-len",
-               str(a["prompt_len"]), "--gen-len", str(a["gen_len"]),
-               "--out", path]
+        if a.get("layers") is None:
+            cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+                   "--no-smoke", "--arch", arch,
+                   "--requests", str(a["requests"]),
+                   "--slots", str(a["slots"]), "--prompt-len",
+                   str(a["prompt_len"]), "--gen-len", str(a["gen_len"]),
+                   "--out", path]
+        else:
+            cmd = [sys.executable, "-c",
+                   f"import sys; sys.path[:0] = [{ROOT!r}, {SRC!r}]; "
+                   f"import chip_smoke; chip_smoke.serve_cut({arch!r}, "
+                   f"{path!r})"]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
                               timeout=400)
@@ -2452,10 +2616,14 @@ def serve_paths(tmp: str) -> dict:
         with open(path) as f:
             res = json.load(f)
         launches = res["kernel_launches"]
-        log("serve", arch=arch, wall_s=wall, **{
-            k: res[k] for k in ("prefill_s", "decode_s", "decode_steps",
-                                "new_tokens", "prefill_tokens_per_s",
-                                "decode_tokens_per_s", "peak_memory_bytes")},
+        kernel, per_prefill = a["kernel"], a["per_prefill"]
+        log("serve", arch=arch, layers=_serve_cfg(arch).n_layers,
+            requests=a["requests"], slots=a["slots"],
+            prompt=a["prompt_len"], wall_s=wall, **{
+                k: res[k] for k in ("prefill_s", "decode_s", "decode_steps",
+                                    "new_tokens", "prefill_tokens_per_s",
+                                    "decode_tokens_per_s",
+                                    "peak_memory_bytes")},
             launches=json.dumps(launches))
         require(launches.get(kernel, 0) == per_prefill,
                 f"serve {arch}: {kernel} launched {launches.get(kernel, 0)} "
@@ -2470,26 +2638,29 @@ def serve_paths(tmp: str) -> dict:
 
 
 def _depth_cut(arch: str):
-    """The arch at full width in float32, cut to 2 layers (phi4-mini) or
-    one superblock of 7 mLSTM + 1 sLSTM (xlstm-1.3b)."""
+    """CARD_VS_CPU[arch]'s cut: the arch at full width in float32, its
+    first group's superblock (or the blocks named) repeated ``reps``
+    times."""
     import dataclasses
 
     from repro_torch.configs import get_arch
 
     cfg = get_arch(arch)
+    cut = CARD_VS_CPU[arch]
     sb, _ = cfg.groups[0]
-    reps = 2 if len(sb) == 1 else 1
-    return dataclasses.replace(cfg, groups=((sb, reps),),
+    if cut["blocks"] is not None:
+        sb = tuple(sb[i] for i in cut["blocks"])
+    return dataclasses.replace(cfg, groups=((sb, cut["reps"]),),
                                param_dtype="float32",
                                activation_dtype="float32")
 
 
 def card_vs_cpu(dev) -> dict:
-    """The same seeded port parameters (made on the CPU, copied to the
-    card) at full width, cut in depth, float32: prefill of a 128-token
-    prompt in 2 slots and 4 greedy decode steps on the card (kernels) and
-    on the CPU (plain versions). Prefill last-position logits must agree
-    within LM_CPU_TOL; the greedy tokens are compared and reported."""
+    """The same seeded port parameters (made on the card, copied to the
+    CPU) at full width, cut in depth, float32 (CARD_VS_CPU): prefill of
+    the prompt and greedy decode steps on the card (kernels) and on the
+    CPU (plain versions). Prefill last-position logits must agree within
+    LM_CPU_TOL; the greedy tokens are compared and reported."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -2498,25 +2669,28 @@ def card_vs_cpu(dev) -> dict:
     from repro_torch.models.transformer import LM
 
     out = {}
-    for arch, (kernel, _) in SERVE.items():
+    for arch, cut in CARD_VS_CPU.items():
+        kernel = SERVE[arch]["kernel"]
         cfg = _depth_cut(arch)
         lm = LM(cfg)
-        p_cpu = lm.init(0, "cpu")
-        p_dev = tree_lib.tree_map(lambda t: t.to(dev), p_cpu)
+        plen, slots, steps = cut["prompt"], cut["slots"], cut["steps"]
+        t0 = time.perf_counter()
+        p_dev = lm.init(0, dev)
+        p_cpu = tree_lib.tree_map(lambda t: t.cpu(), p_dev)
         prompt = torch.from_numpy(TokenPipeline(
-            cfg.vocab_size, 128, 2, seed=0).next_batch(0)["tokens"])
+            cfg.vocab_size, plen, slots, seed=0).next_batch(0)["tokens"])
         logits, toks = {}, {}
         for name, d, params in (("cuda", dev, p_dev), ("cpu", "cpu", p_cpu)):
             build.reset_launches()
-            cache = lm.init_cache(2, 132, d)
+            cache = lm.init_cache(slots, plen + steps, d)
             lg, cache = lm.prefill(params, cache, {"tokens": prompt.to(d)})
             logits[name] = lg.float().cpu()
             seq = []
             tok = torch.argmax(lg[:, -1], -1).to(torch.int32)
-            for i in range(4):
+            for i in range(steps):
                 seq.append(tok.cpu().tolist())
                 lg, cache = lm.decode_step(params, cache,
-                                           {"tokens": tok[:, None]}, 128 + i)
+                                           {"tokens": tok[:, None]}, plen + i)
                 tok = torch.argmax(lg[:, -1], -1).to(torch.int32)
             toks[name] = seq
             if name == "cuda":
@@ -2526,38 +2700,38 @@ def card_vs_cpu(dev) -> dict:
                      f"{arch} depth cut: prefill logits card vs CPU")
         agree = sum(a == b for a, b in zip(toks["cuda"], toks["cpu"]))
         log("reference", arch=f"{arch} depth cut", layers=cfg.n_layers,
-            dtype="float32", prompt=128, slots=2,
+            dtype="float32", prompt=plen, slots=slots,
             matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
             cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
             logits_max_abs_err=err,
             logits_max_abs=float(logits["cpu"].abs().max()),
-            tolerance=LM_CPU_TOL, greedy_steps_equal=f"{agree}/4",
+            tolerance=LM_CPU_TOL, greedy_steps_equal=f"{agree}/{steps}",
             tokens_cuda=json.dumps(toks["cuda"]),
-            tokens_cpu=json.dumps(toks["cpu"]))
+            tokens_cpu=json.dumps(toks["cpu"]),
+            wall_s=time.perf_counter() - t0)
         out[arch] = {"max_abs_err": err, "greedy_equal": agree}
-        del p_dev
+        del p_dev, p_cpu
         torch.cuda.empty_cache()
     return out
 
 
 def profile_serve(dev) -> None:
-    """Where a serving run's time goes, per arch of SERVE at full width:
-    one warm prefill (4 slots x 1024 tokens) and 8 greedy decode steps
-    under torch.profiler, device time beside the host's wall time (the
-    card's busy share; the profiler's own host cost is in the wall), and
-    the largest kernels by device time."""
+    """Where a serving run's time goes, per arch of SERVE at its served
+    config and arguments: one warm prefill of all slots and 4 greedy decode
+    steps under torch.profiler (device activity only: post-processing a
+    host trace of the decode steps took longer than the steps), device
+    time beside the host's wall time (the card's busy share), B7's or B8's
+    device time and share, and the largest kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models.transformer import LM
 
-    a = SERVE_ARGS
-    slots, plen = a["slots"], a["prompt_len"]
-    for arch in SERVE:
-        lm = LM(get_arch(arch))
+    for arch, a in SERVE.items():
+        slots, plen = a["slots"], a["prompt_len"]
+        lm = LM(_serve_cfg(arch))
         params = lm.init(0, dev)
         cache = lm.init_cache(slots, plen + a["gen_len"], dev)
         prompt = torch.from_numpy(TokenPipeline(
@@ -2566,7 +2740,7 @@ def profile_serve(dev) -> None:
         def prefill():
             lm.prefill(params, cache, {"tokens": prompt})
 
-        def decode(n: int = 8):
+        def decode(n: int = 4):
             tok = prompt[:, -1:].to(torch.int32)
             for i in range(n):
                 logits, _ = lm.decode_step(params, cache, {"tokens": tok},
@@ -2576,11 +2750,11 @@ def profile_serve(dev) -> None:
 
         prefill()
         decode(2)
+        mark = "slstm" if a["kernel"] == "slstm_scan" else "flash"
         for phase, fn, steps in (("prefill", prefill, 1),
-                                 ("decode", decode, 8)):
+                                 ("decode", decode, 4)):
             torch.cuda.synchronize(dev)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize(dev)
@@ -2590,11 +2764,12 @@ def profile_serve(dev) -> None:
                        and not getattr(e, "is_user_annotation", False)]
             dev_us = sum(e.self_device_time_total for e in kernels)
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-            b8_us = sum(e.self_device_time_total for e in kernels
-                        if "slstm" in e.key)
-            log("serve-profile", arch=arch, phase=phase, steps=steps,
-                b8_ms_per_step=b8_us / 1e3 / steps,
-                b8_device_share=b8_us / dev_us if dev_us else 0.0,
+            k_us = sum(e.self_device_time_total for e in kernels
+                       if mark in e.key)
+            log("serve-profile", arch=arch, layers=lm.cfg.n_layers,
+                phase=phase, steps=steps, kernel=a["kernel"],
+                kernel_ms_per_step=k_us / 1e3 / steps,
+                kernel_device_share=k_us / dev_us if dev_us else 0.0,
                 wall_ms_per_step=wall * 1e3 / steps,
                 device_ms_per_step=dev_us / 1e3 / steps,
                 busy_share=dev_us / 1e6 / wall,
@@ -2605,19 +2780,22 @@ def profile_serve(dev) -> None:
         torch.cuda.empty_cache()
 
 
-# B7's timed shapes, all causal bf16: (label, B, S, H, K, Dh); the first
-# gives the kernel's row in the summary
-FLASH_TIMED = (("phi4-mini prefill", 4, 1024, 24, 8, 128),
-               ("lm-100m bsp step", 16, 256, 12, 12, 64),
-               ("lm-100m isp-pod step", 4, 256, 12, 12, 64),
-               ("lm-8m bsp step", 16, 256, 8, 8, 32))
+# B7's timed shapes, all causal bf16: (label, B, S, H, K, Dh, window); the
+# first gives the kernel's row in the summary
+FLASH_TIMED = (("phi4-mini prefill", 4, 1024, 24, 8, 128, None),
+               ("lm-100m bsp step", 16, 256, 12, 12, 64, None),
+               ("lm-100m isp-pod step", 4, 256, 12, 12, 64, None),
+               ("lm-8m bsp step", 16, 256, 8, 8, 32, None),
+               ("gemma3-12b local prefill", 4, 2048, 16, 8, 256, 1024),
+               ("mixtral-8x22b prefill", 2, 5120, 48, 8, 128, 4096))
 
 
 def time_flash(dev, flush) -> dict:
     """B7 at each FLASH_TIMED shape beside one
     ``scaled_dot_product_attention`` call on (B, H, S, Dh) copies of the
-    same tensors (its yardstick only; the port never calls it) and beside
-    its bound. Returns the first shape's row."""
+    same tensors (its yardstick only; the port never calls it; a window
+    goes in as a boolean ``attn_mask``) and beside its bound (the window's
+    allowed pairs). Returns the first shape's row."""
     import torch
     import torch.nn.functional as F
 
@@ -2626,20 +2804,31 @@ def time_flash(dev, flush) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     out = None
-    for label, b, s, h, kh, dh in FLASH_TIMED:
+    for label, b, s, h, kh, dh, window in FLASH_TIMED:
         q = _randn((b, s, h, dh), gen, dev, torch.bfloat16)
         k = _randn((b, s, kh, dh), gen, dev, torch.bfloat16)
         v = _randn((b, s, kh, dh), gen, dev, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(s, device=dev)
+            lag = pos[:, None] - pos[None, :]
+            mask = (lag >= 0) & (lag < window)
 
         def kern():
-            return flash_attention.flash_attention(q, k, v, causal=True)
+            return flash_attention.flash_attention(q, k, v, causal=True,
+                                                   window=window)
 
         def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+            if mask is None:
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
-        pairs = b * h * s * (s + 1) // 2  # allowed (query, key) pairs
+        # allowed (query, key) pairs: query i sees min(i + 1, window) keys
+        w = s if window is None else window
+        pairs = b * h * (w * (w + 1) // 2 + (s - w) * w)
         flops = 4 * dh * pairs
         nbytes = 2 * (2 * b * s * h * dh + 2 * b * s * kh * dh)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -2647,13 +2836,15 @@ def time_flash(dev, flush) -> dict:
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         t_cold = _time(kern, dev, 20, True, flush)
         t_warm = _time(kern, dev, 20, False, flush)
-        p_cold = _time(lambda: ref.mha_ref(q, k, v, causal=True), dev, 5,
-                       True, flush)
+        p_cold = _time(lambda: ref.mha_ref(q, k, v, causal=True,
+                                           window=window), dev, 5, True,
+                       flush)
         lib_ms = _time(sdpa, dev, 20, True, flush)
         dev_ms = _device_ms(kern, 10)
         lib_dev_ms = _device_ms(sdpa, 10)
         log("kernel-time", kernel="flash_attention", shape=json.dumps(label),
-            B=b, S=s, H=f"{h}/{kh}", Dh=dh, ms=t_cold, ms_l2warm=t_warm,
+            B=b, S=s, H=f"{h}/{kh}", Dh=dh, window=window, ms=t_cold,
+            ms_l2warm=t_warm,
             device_ms_l2warm=dev_ms, plain_ms=p_cold, bound_ms=bound,
             bound_by=bound_by, bytes=nbytes, flops=flops,
             bytes_ms=t_bytes * 1e3, operations_ms=t_ops * 1e3,
@@ -2661,11 +2852,13 @@ def time_flash(dev, flush) -> dict:
             device_ratio_to_library=dev_ms / lib_dev_ms,
             bound_share=bound / dev_ms,
             library_note="F.scaled_dot_product_attention(is_causal=True, "
-                         "enable_gqa=True) on (B, H, S, Dh) copies")
+                         "enable_gqa=True) on (B, H, S, Dh) copies"
+                         + ("" if window is None else
+                            "; the window as a boolean attn_mask"))
         if out is None:
             out = {"ms": t_cold, "plain_ms": p_cold, "bound_ms": bound,
                    "bound_by": bound_by, "library_ms": lib_ms}
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, mask
     return out
 
 
@@ -3110,8 +3303,7 @@ def profile_step(dev, steady_step_s: float, reps: int = 5) -> None:
 
     for t in range(1, 4):
         step(t)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in range(4, 4 + reps):
             step(t)
@@ -3468,6 +3660,24 @@ def sass_counts(lib) -> dict:
     return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
 
 
+def _repro_processes() -> list:
+    """(pid, command) of every live process but this one that runs the
+    port (the timed phases after the pool want the card to themselves)."""
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[-1].split()[0]
+        except OSError:
+            continue
+        if ("repro_torch" in cmd and state != "Z"
+                and int(pid) != os.getpid()):
+            found.append((int(pid), cmd[:200]))
+    return found
+
+
 def main() -> int:
     import torch
 
@@ -3512,29 +3722,38 @@ def main() -> int:
     def done(phase: str) -> None:  # the script's clock against its limit
         log("phase", done=phase, seconds=round(time.perf_counter() - t0, 1))
 
-    err = check_kernels(dev)
-    check_wire_stress(dev)
-    check_pod_kernels(dev, err)
-    check_reintegration(dev)
+    def beside_the_pool() -> tuple:
+        # bit-exactness, then the in-process trainer's legs (each in its
+        # own process, one at a time), beside the invariant pool: all are
+        # checked, none timed
+        err = check_kernels(dev)
+        check_wire_stress(dev)
+        check_pod_kernels(dev, err)
+        check_reintegration(dev)
+        err["flash_attention"] = max(check_flash(dev),
+                                     check_attention_grads(dev))
+        err["slstm_scan"] = check_slstm(dev)
+        done("bit-exactness")
+        pods, flats = pod_paths(tmp), flat_paths(tmp)
+        done("in-process legs")
+        return err, pods, flats
+
+    # alone on the card, while this process's tracer is fresh
     single = check_single_launches(dev)
-    err["flash_attention"] = max(check_flash(dev),
-                                 check_attention_grads(dev))
-    err["slstm_scan"] = check_slstm(dev)
-    done("bit-exactness")
+    done("single launches")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         runs = main_path(tmp)
-        done("main paths")
+        done("main path")
         straggler_duel(tmp)
         done("straggler duel")
         chaos = chaos_leg(tmp, runs)
         done("chaos")
         tune = topology_tune_leg(tmp)
         done("topology tune")
-        pods = pod_paths(tmp)
-        flats = flat_paths(tmp)
-        done("in-process legs")
-        retune, fleets = invariants(tmp, runs, tune)
-        done("invariants")
+        retune, fleets, (err, pods, flats) = invariants(
+            tmp, runs, tune, beside_the_pool)
+        done("invariants and the other main-path legs")
+        log("processes", left_after_the_pool=json.dumps(_repro_processes()))
         served = serve_paths(tmp)
         done("serving")
     pod_in_process(dev)

@@ -2,17 +2,26 @@
 
 ``get_arch(name)`` returns the full-size ArchConfig, ``get_smoke(name)``
 the reduced same-family config the CPU tests use. ``ARCH_NAMES`` lists all
-ten archs of the JAX package; the eight not yet ported raise
+ten archs of the JAX package; the port runs seven (dense decoders with
+global and sliding-window attention, MoE and xLSTM stacks), and the three
+not yet ported (whisper-base, recurrentgemma-9b, paligemma-3b) raise
 ``NotImplementedError`` (ROADMAP.md §A3).
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import phi4_mini, xlstm_13b
+from repro_torch.configs import (gemma3_12b, mixtral_8x22b, phi35_moe,
+                                 phi4_mini, qwen15_32b, starcoder2_7b,
+                                 xlstm_13b)
 from repro_torch.models.config import ArchConfig
 
 _MODULES = {
     "phi4-mini-3.8b": phi4_mini,
+    "gemma3-12b": gemma3_12b,
+    "qwen1.5-32b": qwen15_32b,
+    "starcoder2-7b": starcoder2_7b,
+    "mixtral-8x22b": mixtral_8x22b,
+    "phi3.5-moe-42b-a6.6b": phi35_moe,
     "xlstm-1.3b": xlstm_13b,
 }
 

@@ -12,6 +12,8 @@ request is not prefilled.
         --requests 8 --slots 4 --prompt-len 32 --gen-len 16
     python -m repro_torch.launch.serve --arch phi4-mini-3.8b --no-smoke \\
         --requests 8 --slots 4 --prompt-len 1024 --gen-len 32
+    python -m repro_torch.launch.serve --arch gemma3-12b --no-smoke \\
+        --requests 8 --slots 4 --prompt-len 2048 --gen-len 32
 
 ``--smoke`` (the default) takes the arch's reduced config. Runs on
 ``--device`` (default ``cuda``; ``cpu`` only when asked for); parameters
@@ -27,6 +29,7 @@ import argparse
 import collections
 import json
 import time
+from typing import Optional
 
 import torch
 
@@ -34,6 +37,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs import ARCH_NAMES, get_arch, get_smoke
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.kernels import build
+from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import LM
 
 
@@ -44,9 +48,13 @@ def _clock(dev: torch.device) -> float:
     return time.perf_counter()
 
 
-def serve(args) -> dict:
+def serve(args, cfg: Optional[ArchConfig] = None) -> dict:
+    """The serving loop over ``args`` (the CLI's flags); ``cfg``, when
+    given, is served in place of the arch's registered config (a depth
+    cut, say)."""
     dev = device_lib.resolve(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    if cfg is None:
+        cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     lm = LM(cfg)
     params = lm.init(args.seed, dev)
     max_len = args.prompt_len + args.gen_len

@@ -1,18 +1,25 @@
-"""Attention: GQA + RoPE, global causal (``repro.models.attention``).
+"""Attention: GQA + RoPE, global causal or sliding-window
+(``repro.models.attention``).
 
 Two paths, as in the JAX package:
 
 * prefill (and a training forward): the whole sequence through B7
-  (``kernels.flash_attention``) for every prompt length, K/V written into
-  the cache in the GQA layout first. The JAX package picks a dense,
-  chunked or banded XLA core by length; the port needs none of them.
+  (``kernels.flash_attention``) for every prompt length, with the layer's
+  window for a sliding-window layer, K/V written into the cache in the
+  GQA layout first. The JAX package picks a dense, chunked or banded XLA
+  core by length; the port needs none of them.
 * decode: one query against the cache through the plain ``_dense_core``,
   an einsum outside any kernel in JAX too.
 
+A sliding-window layer's cache is a ring of ``min(max_len, window)``
+positions: position ``p`` lives in slot ``p % L``. Prefill keeps the last
+``L`` positions of a longer prompt there; decode writes its slot and
+rebuilds each slot's position from ``decode_pos``.
+
 Softmax math is float32 regardless of the activation type. Caches are
 updated in place (the JAX package returns new arrays): a decode step
-writes one position of each layer's cache instead of copying it. Sliding
-window (ring cache) and cross attention are not ported (ROADMAP.md §A3).
+writes one position of each layer's cache instead of copying it. Cross
+attention and prefix-LM masks are not ported (ROADMAP.md §A3).
 """
 
 from __future__ import annotations
@@ -32,11 +39,10 @@ PyTree = Any
 
 
 def _refuse(spec: BlockSpec) -> None:
-    if spec.mixer is not Mixer.GLOBAL_ATTN:
+    if spec.mixer not in (Mixer.GLOBAL_ATTN, Mixer.LOCAL_ATTN):
         raise NotImplementedError(
-            f"{spec.mixer.value}: only global attention is ported "
-            f"(ROADMAP.md §A3: ring cache and cross attention are still to "
-            f"port)")
+            f"{spec.mixer.value}: only global and sliding-window attention "
+            f"are ported (ROADMAP.md §A3: cross attention is still to port)")
 
 
 # ---- params -------------------------------------------------------------------
@@ -61,17 +67,21 @@ def attn_defs(cfg: ArchConfig) -> PyTree:
 
 def cache_defs(cfg: ArchConfig, spec: BlockSpec, batch: int,
                max_len: int) -> PyTree:
-    """KV-cache defs for one attention block: flat (B, L, K*Dh)."""
+    """KV-cache defs for one attention block: flat (B, L, K*Dh), L the
+    ring's ``min(max_len, window)`` for a sliding-window layer."""
     _refuse(spec)
     kd = cfg.n_kv_heads * cfg.resolved_head_dim
-    return {"k": ParamDef((batch, max_len, kd), adt(cfg), "zeros"),
-            "v": ParamDef((batch, max_len, kd), adt(cfg), "zeros")}
+    length = (min(max_len, spec.window) if spec.mixer is Mixer.LOCAL_ATTN
+              else max_len)
+    return {"k": ParamDef((batch, length, kd), adt(cfg), "zeros"),
+            "v": ParamDef((batch, length, kd), adt(cfg), "zeros")}
 
 
 # ---- masks and the dense core ----------------------------------------------------
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+          window: Optional[int] = None,
           k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(Sq, Skv) boolean allow-mask."""
     qp, kp = q_pos[:, None], k_pos[None, :]
@@ -79,6 +89,8 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
                    device=q_pos.device)
     if causal:
         m = m & (kp <= qp)
+    if window is not None:
+        m = m & (qp - kp < window)
     if k_valid is not None:
         m = m & k_valid[None, :]
     return m
@@ -137,13 +149,16 @@ def attn_apply(
     """One attention block; returns ``(out, cache)``.
 
     * prefill / training forward (``decode_pos`` is None): x is the whole
-      sequence; with a cache, K/V fill its first positions (in place).
+      sequence; with a cache, K/V fill its first positions (in place), or
+      a ring's slots ``p % L`` with the last ``L`` positions.
     * decode: x is (B, 1, D) at position ``decode_pos``; K/V are written
-      there (in place) and the query attends over the cache.
+      there (in place; slot ``decode_pos % L`` of a ring) and the query
+      attends over the cache.
     """
     _refuse(spec)
     b, s, _ = x.shape
     n_kv = cfg.n_kv_heads
+    window = spec.window if spec.mixer is Mixer.LOCAL_ATTN else None
     if positions is None:
         base = 0 if decode_pos is None else decode_pos
         positions = (base + torch.arange(s, device=x.device))[None, :].expand(
@@ -163,19 +178,35 @@ def attn_apply(
     if decode_pos is not None:
         if cache is None:
             raise ValueError("decode needs a cache")
-        cache["k"][:, decode_pos:decode_pos + s] = _flat(k)
-        cache["v"][:, decode_pos:decode_pos + s] = _flat(v)
-        idx = torch.arange(cache["k"].shape[1], device=x.device)
-        allow = _mask(positions[0], idx, causal, k_valid=idx <= decode_pos)
+        length = cache["k"].shape[1]
+        slot = decode_pos % length if window is not None else decode_pos
+        cache["k"][:, slot:slot + s] = _flat(k)
+        cache["v"][:, slot:slot + s] = _flat(v)
+        idx = torch.arange(length, device=x.device)
+        if window is not None:
+            # slot i holds position decode_pos - ((decode_pos - i) mod L)
+            k_pos = decode_pos - torch.remainder(decode_pos - idx, length)
+            k_valid = k_pos >= 0
+        else:
+            k_pos, k_valid = idx, idx <= decode_pos
+        allow = _mask(positions[0], k_pos, causal, window, k_valid)
         out = _ungroup(_dense_core(_group(q, n_kv), _unflat(cache["k"]),
                                    _unflat(cache["v"]), allow))
     else:
         if cache is not None:  # prefill: persist K/V (GQA layout)
-            n = min(s, cache["k"].shape[1])
-            cache["k"][:, :n] = _flat(k)[:, :n]
-            cache["v"][:, :n] = _flat(v)[:, :n]
+            length = cache["k"].shape[1]
+            if window is not None and s > length:
+                # the ring keeps the last L positions, position p at p % L
+                slots = torch.remainder(
+                    torch.arange(s - length, s, device=x.device), length)
+                cache["k"][:, slots] = _flat(k)[:, -length:]
+                cache["v"][:, slots] = _flat(v)[:, -length:]
+            else:
+                n = min(s, length)
+                cache["k"][:, :n] = _flat(k)[:, :n]
+                cache["v"][:, :n] = _flat(v)[:, :n]
         out = ops.flash_attention(q, k.contiguous(), v.contiguous(),
-                                  causal=causal)
+                                  causal=causal, window=window)
 
     y = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
     return y.to(x.dtype), cache

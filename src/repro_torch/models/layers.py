@@ -71,7 +71,8 @@ def ff_defs(cfg: ArchConfig, kind: FF) -> PyTree:
                 "b_up": ParamDef((f,), dt, "zeros"),
                 "w_down": ParamDef((f, d), dt),
                 "b_down": ParamDef((d,), dt, "zeros")}
-    raise NotImplementedError(f"ff_defs: {kind} is not ported (ROADMAP.md)")
+    raise ValueError(f"ff_defs: {kind} is not a dense FF (MoE is "
+                     f"models.moe.moe_defs)")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +91,8 @@ def ff_apply(cfg: ArchConfig, kind: FF, p: PyTree,
     if kind is FF.GELU:
         h = gelu(x @ p["w_up"] + p["b_up"].to(x.dtype))
         return (h @ p["w_down"] + p["b_down"].to(x.dtype)).to(x.dtype)
-    raise NotImplementedError(f"ff_apply: {kind} is not ported (ROADMAP.md)")
+    raise ValueError(f"ff_apply: {kind} is not a dense FF (MoE is "
+                     f"models.moe.moe_apply)")
 
 
 # ---- embeddings ----------------------------------------------------------------

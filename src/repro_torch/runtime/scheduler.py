@@ -93,6 +93,8 @@ class _FleetSlot:
     proc: Optional[subprocess.Popen] = None
     spawned_at: float = 0.0
     invocations: int = 0
+    # the job whose kill_worker_at_step knob SIGKILLed the live invocation
+    kill_for: Optional[str] = None
     # the live invocation's segment names, every (job, shard)
     shm_segs: list = dataclasses.field(default_factory=list)
 
@@ -393,6 +395,13 @@ class FleetScheduler:
         code = slot.proc.returncode
         self.lifetimes.append(time.monotonic() - slot.spawned_at)
         slot.proc = None
+        if slot.kill_for is not None:
+            st = self.jobs[slot.kill_for]
+            if st.statuses.get(str(slot.worker)) == "bye:invocation-end":
+                # the thread said its bye between the poll and the signal:
+                # the kill missed, so it fires again on the next invocation
+                st.killed_once = False
+            slot.kill_for = None
         live = []
         for jid in self._hosted_jobs(slot):
             st = self.jobs[jid]
@@ -501,14 +510,23 @@ class FleetScheduler:
 
     def _fire_kill_knobs(self) -> None:
         """The legacy per-job fault knobs. A worker SIGKILL hits the slot's
-        process, so every job on it replays."""
-        for st in self.jobs.values():
+        process, so every job on it replays.
+
+        The worker kill waits for a running invocation of its job on the
+        slot (status ``running``: hello said, no bye yet). A slot whose
+        threads already said ``bye:invocation-end`` (a sibling job's
+        boundary stops them all) exits cleanly anyway, and a respawn that
+        is still importing shows the last invocation's bye: killing either
+        replays nothing and records no respawn."""
+        for jid, st in self.jobs.items():
             if st.cfg.kill_worker_at_step is not None and not st.killed_once:
                 w, at = st.cfg.kill_worker_at_step
                 slot = self.slots[w]
-                if st.frontier >= at and slot.alive:
+                if (st.frontier >= at and slot.alive
+                        and st.statuses.get(str(w)) == "running"):
                     slot.proc.send_signal(signal.SIGKILL)
                     st.killed_once = True
+                    slot.kill_for = jid
             if (st.cfg.kill_broker_at_step is not None
                     and not st.broker_killed_once):
                 s, at = st.cfg.kill_broker_at_step

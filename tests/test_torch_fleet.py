@@ -23,8 +23,11 @@ from __future__ import annotations
 
 import os
 import platform
+import signal
+import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -270,6 +273,52 @@ def test_fleet_shm_faults_bit_identical(tmp_path, params0, solo_digests):
     left = [n for n in os.listdir("/dev/shm")
             if n.startswith(res["shm_token"])]
     assert left == []
+
+
+def test_worker_kill_lands_on_a_running_invocation(tmp_path, params0):
+    """The worker kill knob of job ``a`` (worker 1, step 2) fires only on a
+    running invocation of ``a``: a slot whose threads already said
+    ``bye:invocation-end`` (job ``b``'s boundary stops its sibling too) is
+    left to exit cleanly, and the kill lands on the next invocation, which
+    the reaper records as a respawn of ``a`` on worker 1."""
+    sched = FleetScheduler(_fleet(tmp_path / "fleet", params0, {
+        "a": dict(invocation_steps=5, checkpoint_every=2,
+                  kill_worker_at_step=(1, 2)),
+        "b": dict(workload="lr", invocation_steps=4, checkpoint_every=2)}))
+    sched._spawn = lambda slot: None  # the test plays the invocations
+    slot, a, b = sched.slots[1], sched.jobs["a"], sched.jobs["b"]
+
+    def invocation(status: str) -> None:
+        slot.proc = subprocess.Popen(
+            [sys.executable, "-c", "import time; time.sleep(60)"])
+        slot.spawned_at = time.monotonic()
+        a.statuses = {"1": status}
+        b.statuses = {"1": status}
+
+    def end() -> None:
+        try:
+            slot.proc.wait(timeout=2)  # a SIGKILL ends it at once
+        except subprocess.TimeoutExpired:
+            # not killed: the invocation ends at its boundary
+            a.statuses = b.statuses = {"1": "bye:invocation-end"}
+            slot.proc.terminate()
+            slot.proc.wait(timeout=30)
+        sched._reap(slot)
+
+    a.frontier = 2
+    invocation("bye:invocation-end")  # winding down after b's boundary
+    sched._fire_kill_knobs()
+    end()
+    assert sched.respawns == []
+    invocation("running")
+    sched._fire_kill_knobs()
+    end()
+    mine = [r for r in sched.respawns if r["job"] == "a"]
+    assert len(mine) == 1
+    assert mine[0]["worker"] == 1
+    assert mine[0]["exit_code"] == -signal.SIGKILL
+    assert mine[0]["restored_step"] <= 2
+    assert a.killed_once
 
 
 def test_fleet_fair_share_pool_budget(tmp_path, params0):
